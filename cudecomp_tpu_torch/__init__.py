@@ -1,0 +1,77 @@
+"""cudecomp_tpu_torch — the pencil-decomposition library in PyTorch and CUDA.
+
+The port of ``cudecomp_tpu`` (JAX, TPU) to PyTorch on an NVIDIA H100; the
+JAX package stays the reference and the tests hold this package to it.
+
+  * the process grid is a ``torch.distributed`` DeviceMesh with dims
+    ``('pr', 'pc')`` (none for a ``(1, 1)`` grid), and each rank holds its
+    own local pencil tensor on an explicit ``torch.device``;
+  * transposes exchange with ``all_to_all_single`` over one mesh dim; the
+    slab path's local permute is the K1 CUDA kernel (``ops.cuda_kernels``);
+  * the distributed FFT runs ``torch.fft`` (cuFFT) between transposes.
+
+Ported so far: config, geometry, grid and mesh, the all-to-all exchange,
+the four transposes, the distributed FFT, ``time_fn`` and the benchmark.
+"""
+
+from cudecomp_tpu_torch.config import (
+    GridConfig,
+    HaloMethod,
+    RankOrder,
+    TransposeMethod,
+)
+from cudecomp_tpu_torch.geometry import (
+    PencilInfo,
+    get_pencil_info,
+    get_shifted_rank,
+    get_split_offsets,
+    get_splits,
+    global_buffer_shape,
+    halo_workspace_size,
+    pencil_buffer_shape,
+    transpose_workspace_size,
+)
+from cudecomp_tpu_torch.grid import (GridDescriptor, clear_plan_caches,
+                                     finalize, init, make_grid)
+from cudecomp_tpu_torch.ops.fft import DistributedFFT, fft3d, ifft3d
+from cudecomp_tpu_torch.ops.transpose import (
+    transpose_x_to_y,
+    transpose_y_to_x,
+    transpose_y_to_z,
+    transpose_z_to_y,
+)
+from cudecomp_tpu_torch.utils.arrays import (gather_global, scatter_global,
+                                             valid_interior_mask)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "GridConfig",
+    "TransposeMethod",
+    "HaloMethod",
+    "RankOrder",
+    "PencilInfo",
+    "get_splits",
+    "get_split_offsets",
+    "get_pencil_info",
+    "get_shifted_rank",
+    "pencil_buffer_shape",
+    "global_buffer_shape",
+    "transpose_workspace_size",
+    "halo_workspace_size",
+    "GridDescriptor",
+    "make_grid",
+    "clear_plan_caches",
+    "init",
+    "finalize",
+    "transpose_x_to_y",
+    "transpose_y_to_x",
+    "transpose_y_to_z",
+    "transpose_z_to_y",
+    "DistributedFFT",
+    "fft3d",
+    "ifft3d",
+    "scatter_global",
+    "gather_global",
+    "valid_interior_mask",
+]

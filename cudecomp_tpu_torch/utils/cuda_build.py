@@ -1,0 +1,105 @@
+"""Build the package's CUDA sources into shared libraries and load them.
+
+Each library is compiled at first use by ``nvcc`` (found through
+``torch.utils.cpp_extension.CUDA_HOME``) for Hopper::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<sources>
+
+into ``cudecomp_tpu_torch/_build/`` and loaded with ``ctypes``.  Where the
+package directory cannot be written (an installed copy), the libraries go
+to ``$XDG_CACHE_HOME/cudecomp_tpu_torch`` (``~/.cache`` by default)
+instead.  The sources carry plain C entry points, so no PyTorch header is
+compiled and a build takes seconds.  The file name carries a hash of the
+sources and the flags, so an edited source is rebuilt and an unchanged one
+is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Sequence
+
+from cudecomp_tpu_torch.utils.env import log_info
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_path() -> Path:
+    """The toolkit's ``nvcc``; raises when no CUDA toolkit is installed."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (torch.utils.cpp_extension."
+                           "CUDA_HOME is None); nvcc builds the kernels")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.is_file():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return nvcc
+
+
+def build_dir() -> Path:
+    """``BUILD_DIR`` when it (or, before the first build, the package
+    directory) can be written; the per-user cache otherwise."""
+    probe = BUILD_DIR if BUILD_DIR.exists() else BUILD_DIR.parent
+    if os.access(probe, os.W_OK):
+        return BUILD_DIR
+    cache = Path(os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache")
+    return cache / "cudecomp_tpu_torch"
+
+
+def _sources(names: Sequence[str]):
+    return [CSRC_DIR / n for n in names]
+
+
+def library_path(name: str, sources: Sequence[str]) -> Path:
+    """Where the library built from ``sources`` (file names in ``csrc/``)
+    lives: the name carries a hash of the sources' bytes and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(sources):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str, sources: Sequence[str]) -> Path:
+    """Compile ``sources`` into ``lib<name>-<hash>.so`` unless it exists;
+    returns its path.  Raises with nvcc's output when the build fails."""
+    path = library_path(name, sources)
+    if path.is_file():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    # build under a private name, then rename: a concurrent process never
+    # loads a half-written library
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    cmd = [str(nvcc_path()), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, _sources(sources))]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with exit code {res.returncode}: "
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    os.replace(tmp, path)
+    for stale in path.parent.glob(f"lib{name}-*.so"):
+        if stale != path:
+            stale.unlink(missing_ok=True)
+    log_info(f"built {path} in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+    """Build (if needed) and load the library; cached per process.
+    ``sources`` must be hashable (a tuple)."""
+    return ctypes.CDLL(str(build(name, sources)))

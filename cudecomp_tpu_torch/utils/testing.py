@@ -1,0 +1,136 @@
+"""Test oracles, and the worker of the multi-rank gloo test.
+
+The reference initializes each pencil element to its *global linear index*
+and checks outputs against analytically computed pencils
+(``tests/ctest/transpose_tests.cc:333-378``).  :func:`global_index_field`
+and :func:`check_shards_match_pencil` are that oracle for this rank's
+local tensors.
+
+:func:`multirank_worker` runs in each spawned rank of the multi-rank test:
+it lives in the package so that spawned children can import it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cudecomp_tpu_torch import geometry
+
+
+def global_index_field(gdims, dtype=torch.float64) -> torch.Tensor:
+    """Global tensor whose value is its global linear index (x-major)."""
+    n = int(np.prod(gdims))
+    return torch.arange(n, dtype=dtype).reshape(tuple(gdims))
+
+
+def check_shards_match_pencil(grid, local, axis, x_global, halo_extents=None,
+                              padding=None):
+    """Check this rank's local interior against PencilInfo directly
+    (independent of scatter_global/gather_global); raises AssertionError."""
+    cfg = grid.config
+    order = cfg.mem_order(axis)
+    halo = geometry._check_extents(halo_extents, "halo_extents")
+    pad = geometry._check_extents(padding, "padding")
+    pinfo = geometry.get_pencil_info(cfg, axis, grid.coords, halo, pad)
+    lo_g, hi_g = pinfo.lo_g, pinfo.hi_g
+    sl_buf, sl_src = [], [None] * 3
+    for i in range(3):
+        g = order[i]
+        valid = hi_g[g] - lo_g[g] + 1
+        sl_buf.append(slice(halo[g], halo[g] + valid))
+        sl_src[g] = slice(lo_g[g], lo_g[g] + valid)
+    expected = torch.as_tensor(x_global)[tuple(sl_src)].permute(order)
+    got = local[tuple(sl_buf)].to(expected.device)
+    if not torch.equal(got, expected):
+        raise AssertionError(f"pencil {axis} at coords {grid.coords}: "
+                             f"interior differs from the global field")
+
+
+# -- multi-rank worker -----------------------------------------------------------
+
+_TRANSPOSES = ("x_to_y", "y_to_z", "z_to_y", "y_to_x")
+
+
+def _run_case(case, rank_world):
+    """Check one case on this rank: 4 transposes bit-equal, FFT to atol."""
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch.ops.fft import DistributedFFT
+
+    cfg = ct.GridConfig.from_dict(case["config"])
+    grid = ct.make_grid(cfg, "cpu")
+    coords = grid.coords
+    want = case["shards"]  # name -> {coords: numpy local tensor}
+
+    def check(name, got, atol=0.0):
+        exp = torch.from_numpy(want[name][coords])
+        if tuple(got.shape) != tuple(exp.shape):
+            raise AssertionError(f"{case['name']} {name} rank {rank_world} "
+                                 f"{coords}: shape {tuple(got.shape)} != "
+                                 f"{tuple(exp.shape)}")
+        if atol == 0.0:
+            ok = torch.equal(got, exp)
+        else:
+            ok = bool(torch.allclose(got, exp, rtol=0, atol=atol))
+        if not ok:
+            err = float((got - exp).abs().max())
+            raise AssertionError(f"{case['name']} {name} rank {rank_world} "
+                                 f"{coords}: max abs diff {err}")
+
+    x_global = torch.from_numpy(case["field"])
+    buf = ct.scatter_global(grid, x_global, 0)
+    check("x", buf)
+    check_shards_match_pencil(grid, buf, 0, x_global)
+    for name in _TRANSPOSES:
+        buf = getattr(ct, f"transpose_{name}")(grid, buf)
+        check(name, buf)
+    back = ct.gather_global(grid, buf, 0)
+    if not torch.equal(back, x_global):
+        raise AssertionError(f"{case['name']}: gathered round trip differs")
+
+    cplx = torch.from_numpy(case["cfield"])
+    plan = DistributedFFT(grid=grid)
+    xh = plan.forward(ct.scatter_global(grid, cplx, 0))
+    check("fft", xh, atol=1e-10)
+    check("ifft", plan.inverse(xh), atol=1e-10)
+    rplan = DistributedFFT(grid=grid, real=True)
+    rh = rplan.forward(buf)
+    check("rfft", rh, atol=1e-10)
+    check("irfft", rplan.inverse(rh), atol=1e-10)
+
+
+def multirank_worker(rank: int, world: int, init_file: str, cases) -> None:
+    """One rank of the multi-rank test: gloo process group, then every case.
+
+    ``cases``: dicts with ``name``, ``config`` (a GridConfig field dict),
+    ``field`` (real global field), ``cfield`` (complex global field) and
+    ``shards`` (op name -> {(pr, pc): expected local tensor as numpy}).
+    A case with ``expect_error`` instead checks that the X->Y transpose
+    raises ValueError with that text.
+    """
+    import torch.distributed as dist
+
+    import cudecomp_tpu_torch as ct
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        for case in cases:
+            if "expect_error" in case:
+                cfg = ct.GridConfig.from_dict(case["config"])
+                grid = ct.make_grid(cfg, "cpu")
+                x = torch.zeros(grid.buffer_shape(0))
+                try:
+                    ct.transpose_x_to_y(grid, x)
+                except ValueError as e:
+                    if case["expect_error"] not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"{case['name']}: no ValueError")
+                continue
+            _run_case(case, rank)
+        dist.barrier()
+    finally:
+        ct.clear_plan_caches()
+        dist.destroy_process_group()

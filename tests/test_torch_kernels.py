@@ -1,0 +1,328 @@
+"""K1 (the local-permute kernel) of cudecomp_tpu_torch.
+
+On the CPU the wrappers run their plain twins, which must be bit-equal to
+the JAX package's Pallas kernels run in interpret mode.  The CUDA kernel
+itself is checked against its twin by the ``gpu`` tests, which skip
+without a card.  JAX is imported inside the tests that compare with it,
+so that on a machine without JAX the ``gpu`` tests run with
+``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
+"""
+
+import stat
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import cudecomp_tpu_torch as ct
+from cudecomp_tpu_torch.ops import cuda_kernels as K
+from cudecomp_tpu_torch.utils import cuda_build
+
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+
+
+def make_pair(shape, dtype_key, seed=0):
+    """The same values as a jax array and a torch tensor."""
+    import jax.numpy as jnp
+    jdt = {"f32": np.float32, "f64": np.float64, "bf16": jnp.bfloat16}[dtype_key]
+    tdt = DTYPES[dtype_key]
+    f = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    jx = jnp.asarray(f).astype(jdt)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(tdt)
+    return jx, tx
+
+
+def as_np(t):
+    return t.to(torch.float32).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def jax_np(a):
+    import jax.numpy as jnp
+    return np.asarray(a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("perm", K.CYCLIC_PERMS)
+@pytest.mark.parametrize("shape", [
+    (16, 24, 32), (8, 16, 128),
+    (7, 33, 65), (1, 5, 3),   # ragged: whole-extent Pallas blocks
+])
+def test_cyclic_permute_twin_matches_pallas(shape, perm, dtype):
+    import jax.numpy as jnp
+    from cudecomp_tpu.ops.pallas_kernels import (cyclic_permute_uses_kernel,
+                                                 pallas_cyclic_permute)
+    jx, tx = make_pair(shape, dtype)
+    # the JAX side really runs its kernel (in interpret mode)
+    assert cyclic_permute_uses_kernel(shape, perm, interpret=True,
+                                      itemsize=jnp.dtype(jx.dtype).itemsize)
+    want = jax_np(pallas_cyclic_permute(jx, perm, interpret=True))
+    before = K.launch_count
+    got = K.cyclic_permute(tx, perm)
+    assert K.launch_count == before  # CPU tensors take the twin
+    assert got.dtype == tx.dtype and got.is_contiguous()
+    np.testing.assert_array_equal(as_np(got), want)
+    np.testing.assert_array_equal(as_np(K.cyclic_permute_ref(tx, perm)), want)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,tiles", [
+    ((256, 1152), (256, 384)),   # the non-square tiles of test_pallas.py
+    ((256, 1152), (128, 1152)),
+    ((64, 96), (32, 32)),
+    ((33, 65), (32, 32)),        # ragged: pallas_transpose2d declines to x.T
+    ((1, 40), (1, 40)),
+])
+def test_transpose2d_twin_matches_pallas(shape, tiles, dtype):
+    from cudecomp_tpu.ops.pallas_kernels import pallas_transpose2d
+    jx, tx = make_pair(shape, dtype, seed=1)
+    want = jax_np(pallas_transpose2d(jx, tm=tiles[0], tn=tiles[1],
+                                     interpret=True))
+    before = K.launch_count
+    got = K.transpose2d(tx)
+    assert K.launch_count == before
+    np.testing.assert_array_equal(as_np(got), want)
+    np.testing.assert_array_equal(as_np(K.transpose2d_ref(tx)), want)
+
+
+def test_trailing_dims_move_with_the_element():
+    x = torch.arange(3 * 4 * 5 * 2, dtype=torch.float32).reshape(3, 4, 5, 2)
+    for perm in K.CYCLIC_PERMS:
+        got = K.cyclic_permute(x, perm)
+        assert torch.equal(got, x.permute(perm + (3,)))
+        c = torch.view_as_complex(x)
+        assert torch.equal(torch.view_as_real(K.cyclic_permute(c, perm)), got)
+    assert K.element_bytes(x, 3) == 8
+    assert K.element_bytes(torch.zeros(2, 2, 3, dtype=torch.complex128), 2) == 48
+    y = torch.arange(12.0).reshape(3, 4, 1)
+    assert torch.equal(K.transpose2d(y), y.transpose(0, 1))
+
+
+def test_word_bytes_divides_element_and_addresses():
+    assert K.word_bytes(8, 256, 512) == 8       # c64 or f32 pair
+    assert K.word_bytes(12, 256, 512) == 4      # 3-component f32
+    assert K.word_bytes(48, 256, 512) == 16     # 3-component c128
+    assert K.word_bytes(6, 256, 256) == 2       # 3-component bf16
+    assert K.word_bytes(3, 256, 256) == 1
+    assert K.word_bytes(8, 260, 512) == 4       # a view 4 bytes off
+    assert K.word_bytes(16, 256, 264) == 8
+
+
+def test_wrappers_reject_bad_input():
+    x = torch.zeros(4, 5, 6)
+    with pytest.raises(ValueError, match="cyclic_permute"):
+        K.cyclic_permute(x, (0, 2, 1))
+    with pytest.raises(ValueError, match="cyclic_permute"):
+        K.cyclic_permute(torch.zeros(4, 5), (1, 2, 0))
+    with pytest.raises(ValueError, match="transpose2d"):
+        K.transpose2d(torch.zeros(4))
+
+
+def test_cpu_dispatch_never_launches():
+    # the whole slab path on CPU tensors: K1's twin runs, nothing launches
+    K.reset_launch_count()
+    cfg = ct.GridConfig(gdims=(8, 9, 10), pdims=(1, 1),
+                        transpose_axis_contiguous=(True, True, True))
+    grid = ct.make_grid(cfg, "cpu")
+    x = torch.randn(grid.buffer_shape(0), dtype=torch.complex64)
+    z = ct.transpose_y_to_z(grid, ct.transpose_x_to_y(grid, x))
+    back = ct.transpose_y_to_x(grid, ct.transpose_z_to_y(grid, z))
+    assert torch.equal(back, x)
+    assert K.launch_count == 0
+
+
+def test_cuda_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.make_grid(ct.GridConfig(gdims=(8, 8, 8), pdims=(1, 1)),
+                     device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.init("cuda")
+    assert ct.init("cpu") == torch.device("cpu")
+
+
+# -- the build -----------------------------------------------------------------
+
+def _fake_nvcc(tmp_path):
+    """An executable that records its arguments and writes the -o file."""
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('lib')\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    return nvcc, log
+
+
+def test_build_compiles_once_per_source_hash(tmp_path, monkeypatch):
+    src_dir = tmp_path / "csrc"
+    src_dir.mkdir()
+    (src_dir / "k.cu").write_text("// v1\n")
+    nvcc, log = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", src_dir)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: nvcc)
+
+    p1 = cuda_build.build("k", ("k.cu",))
+    assert p1.is_file() and p1.parent == tmp_path / "_build"
+    args = log.read_text().splitlines()
+    assert len(args) == 1
+    assert "-gencode arch=compute_90a,code=sm_90a" in args[0]
+    assert "-O3 -shared -Xcompiler -fPIC" in args[0]
+    assert cuda_build.build("k", ("k.cu",)) == p1       # reused
+    assert len(log.read_text().splitlines()) == 1
+
+    (src_dir / "k.cu").write_text("// v2\n")            # edited: rebuilt
+    p2 = cuda_build.build("k", ("k.cu",))
+    assert p2 != p1 and p2.is_file() and not p1.exists()
+    assert len(log.read_text().splitlines()) == 2
+    assert not list((tmp_path / "_build").glob("*.tmp.so"))
+
+
+def test_build_goes_to_the_user_cache_when_package_is_read_only(
+        tmp_path, monkeypatch, capsys):
+    src_dir = tmp_path / "csrc"
+    src_dir.mkdir()
+    (src_dir / "k.cu").write_text("// v1\n")
+    nvcc, _ = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", src_dir)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "pkg" / "_build")
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: nvcc)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    (tmp_path / "pkg").mkdir()
+    assert cuda_build.build_dir() == tmp_path / "pkg" / "_build"
+    monkeypatch.setattr(cuda_build.os, "access", lambda path, mode: False)
+    cache = tmp_path / "cache" / "cudecomp_tpu_torch"
+    assert cuda_build.build_dir() == cache
+    p = cuda_build.build("k", ("k.cu",))
+    assert p.is_file() and p.parent == cache
+    assert not (tmp_path / "pkg" / "_build").exists()
+    assert f"built {p}" in capsys.readouterr().err
+
+
+def test_build_reports_nvcc_failure(tmp_path, monkeypatch):
+    src_dir = tmp_path / "csrc"
+    src_dir.mkdir()
+    (src_dir / "k.cu").write_text("// broken\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'error: expected a ;' >&2\nexit 2\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", src_dir)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="expected a ;"):
+        cuda_build.build("k", ("k.cu",))
+    assert not list((tmp_path / "_build").iterdir())
+
+
+def test_nvcc_path_without_toolkit(monkeypatch):
+    import torch.utils.cpp_extension as cpp
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="CUDA toolkit"):
+        cuda_build.nvcc_path()
+
+
+def test_kernel_source_is_packaged():
+    assert (cuda_build.CSRC_DIR / K.SOURCES[0]).is_file()
+    assert cuda_build.library_path("transpose2d", K.SOURCES).parent == (
+        cuda_build.PACKAGE_DIR / "_build")
+
+
+# -- on the card -------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+GPU_DTYPES = [torch.bfloat16, torch.float32, torch.float64, torch.complex64,
+              torch.complex128]
+
+
+def _cuda_field(shape, dtype, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    if dtype.is_complex:
+        return torch.view_as_complex(torch.randn(
+            tuple(shape) + (2,), generator=g, device=device,
+            dtype=dtype.to_real()))
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+@pytest.mark.parametrize("perm", K.CYCLIC_PERMS)
+def test_gpu_cyclic_permute_matches_twin(cuda, dtype, perm):
+    for shape in ((7, 33, 65), (1, 17, 9), (64, 32, 96), (5, 4, 1)):
+        x = _cuda_field(shape, dtype, cuda)
+        before = K.launch_count
+        got = K.cyclic_permute(x, perm)
+        torch.cuda.synchronize()
+        assert K.launch_count == before + 1
+        assert torch.equal(got, K.cyclic_permute_ref(x, perm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", GPU_DTYPES)
+def test_gpu_transpose2d_matches_twin(cuda, dtype):
+    for shape in ((1, 1000), (1000, 1), (33, 65), (64, 4096)):
+        x = _cuda_field(shape, dtype, cuda)
+        assert torch.equal(K.transpose2d(x), K.transpose2d_ref(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,comp", [
+    (torch.bfloat16, 3), (torch.float32, 3), (torch.float32, 5),
+    (torch.float64, 3), (torch.complex128, 3)])
+def test_gpu_any_element_size_matches_twin(cuda, dtype, comp):
+    # elements of 6, 12, 20, 24 and 48 bytes move as several words
+    for shape in ((7, 33, 65), (64, 32, 96)):
+        x = _cuda_field(shape + (comp,), dtype, cuda)
+        for perm in K.CYCLIC_PERMS:
+            before = K.launch_count
+            got = K.cyclic_permute(x, perm)
+            assert K.launch_count == before + 1
+            assert torch.equal(got, K.cyclic_permute_ref(x, perm))
+
+
+@pytest.mark.gpu
+def test_gpu_view_at_an_offset_matches_twin(cuda):
+    # 8-byte elements at an address 4 bytes off move as two 4-byte words
+    flat = _cuda_field((1 + 7 * 33 * 65 * 2,), torch.float32, cuda)
+    x = flat[1:].view(7, 33, 65, 2)
+    assert x.data_ptr() % 8 == 4
+    for perm in K.CYCLIC_PERMS:
+        assert torch.equal(K.cyclic_permute(x, perm),
+                           K.cyclic_permute_ref(x, perm))
+
+
+@pytest.mark.gpu
+def test_gpu_component_transposes_launch_k1(cuda):
+    # a 3-component f32 field (12-byte elements) through the public ops:
+    # every cyclic net permute launches K1, and the result is the CPU's
+    cfg = ct.GridConfig(gdims=(8, 6, 10), pdims=(1, 1),
+                        transpose_axis_contiguous=(True, True, True))
+    cpu, gpu = ct.make_grid(cfg, "cpu"), ct.make_grid(cfg, cuda)
+    a = torch.randn(cpu.buffer_shape(0) + (3,),
+                    generator=torch.Generator().manual_seed(0))
+    b = a.to(gpu.device)
+    for name in ("x_to_y", "y_to_z", "z_to_y", "y_to_x"):
+        before = K.launch_count
+        a = getattr(ct, f"transpose_{name}")(cpu, a)
+        b = getattr(ct, f"transpose_{name}")(gpu, b)
+        assert K.launch_count == before + 1, name
+        assert torch.equal(b.cpu(), a), name
+
+
+@pytest.mark.gpu
+def test_gpu_rejects_what_k1_cannot_move(cuda):
+    with pytest.raises(ValueError, match="contiguous"):
+        K.cyclic_permute(torch.zeros(4, 6, 8, device=cuda)[:, :, ::2],
+                         (1, 2, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.transpose2d(torch.zeros(6, 8, device=cuda)[:, ::2])

@@ -1,0 +1,182 @@
+"""The port's slice end to end: the benchmark's round trip against the JAX
+package, the 4-rank gloo run of transposes and FFTs against the JAX
+shards, and the port's independence from JAX."""
+
+import dataclasses
+import enum
+import os
+import re
+import subprocess
+import sys
+import time
+import zlib
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cudecomp_tpu as cd
+from cudecomp_tpu import geometry as jgeo
+from cudecomp_tpu.ops.fft import DistributedFFT as JFFT
+from cudecomp_tpu.utils.arrays import coords_of_shard_index
+
+from cudecomp_tpu_torch import bench, performance
+from cudecomp_tpu_torch.utils.testing import multirank_worker
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_bench_cycle_matches_jax_planes():
+    # the port's benchmark cycle (complex64, interleaved) at 32^3 against
+    # the JAX bench's plane-carried cycle on the same field
+    N = 32
+    plan = bench.make_plan(N, axis_contiguous=True, device="cpu")
+    assert plan.grid.config.transpose_axis_contiguous == (True, True, True)
+    x = bench.make_field(plan.grid, seed=0)
+    assert x.dtype == torch.complex64 and tuple(x.shape) == (N, N, N)
+    xh = plan.forward(x)
+    out = bench.cycle(plan, x)
+
+    jcfg = cd.GridConfig(gdims=(N, N, N), pdims=(1, 1),
+                         transpose_axis_contiguous=(True, True, True))
+    jgrid = cd.make_grid(jcfg, devices=jax.devices()[:1])
+    jplan = JFFT(grid=jgrid, split_complex=True)
+    planes = (jnp.asarray(x.real.numpy()), jnp.asarray(x.imag.numpy()))
+    jh = jplan.forward_planes(planes)
+    jout = jplan.inverse_planes(jh)
+
+    want_h = np.asarray(jh[0]) + 1j * np.asarray(jh[1])
+    rel = np.linalg.norm(xh.numpy() - want_h) / np.linalg.norm(want_h)
+    assert rel <= 1e-5
+    want = np.asarray(jout[0]) + 1j * np.asarray(jout[1])
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=1e-5)
+    assert bench.max_abs_err(out, x) < bench.GATE
+
+
+def test_bench_and_timing_need_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(N=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        performance.time_fn(lambda: None)
+
+
+def test_bench_field_is_seeded():
+    plan = bench.make_plan(8, device="cpu")
+    a = bench.make_field(plan.grid, seed=5)
+    assert torch.equal(a, bench.make_field(plan.grid, seed=5))
+    assert not torch.equal(a, bench.make_field(plan.grid, seed=6))
+    r = bench.make_field(plan.grid, seed=5, dtype=torch.float32)
+    assert r.dtype == torch.float32 and tuple(r.shape) == (8, 8, 8)
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, cudecomp_tpu_torch, cudecomp_tpu_torch.bench, "
+            "cudecomp_tpu_torch.performance, "
+            "cudecomp_tpu_torch.ops.cuda_kernels, "
+            "cudecomp_tpu_torch.utils.cuda_build, "
+            "cudecomp_tpu_torch.utils.testing, cudecomp_tpu_torch.utils.env\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'cudecomp_tpu' "
+            "or m.startswith('cudecomp_tpu.')]\n"
+            "assert not bad, bad\nprint('CLEAN')")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0 and "CLEAN" in res.stdout, res.stderr[-2000:]
+    pat = re.compile(r"^\s*(import|from) (jax|cudecomp_tpu)\b", re.M)
+    for src in sorted((ROOT / "cudecomp_tpu_torch").rglob("*.py")):
+        assert not pat.search(src.read_text()), src
+    assert not pat.search((ROOT / "chip_smoke.py").read_text())
+
+
+def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240, env=env)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=240, env=env)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+# -- 4 gloo ranks against the JAX shards ------------------------------------------
+
+def _shards(grid, arr, axis):
+    """{(pr, pc): numpy local tensor} of a JAX padded-pencil array."""
+    local = jgeo.pencil_buffer_shape(grid.config, axis)
+    out = {}
+    for shard in arr.addressable_shards:
+        if getattr(shard, "replica_id", 0) != 0:
+            continue
+        coords = coords_of_shard_index(grid, axis, shard.index, local)
+        out[tuple(int(c) for c in coords)] = np.asarray(shard.data)
+    return out
+
+
+def _spec(jcfg):
+    """The config as plain values: the ranks never import the JAX package."""
+    return {k: (v.value if isinstance(v, enum.Enum) else v)
+            for k, v in dataclasses.asdict(jcfg).items()}
+
+
+def _jax_case(name, **kw):
+    jcfg = cd.GridConfig(**kw)
+    n = jcfg.pdims[0] * jcfg.pdims[1]
+    grid = cd.make_grid(jcfg, devices=jax.devices()[:n])
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    f = rng.standard_normal(jcfg.gdims)
+    cf = f + 1j * rng.standard_normal(jcfg.gdims)
+    shards = {}
+    x = cd.scatter_global(grid, f, 0)
+    shards["x"] = _shards(grid, x, 0)
+    buf = x
+    for op, axis in (("x_to_y", 1), ("y_to_z", 2), ("z_to_y", 1),
+                     ("y_to_x", 0)):
+        buf = getattr(cd, f"transpose_{op}")(grid, buf)
+        shards[op] = _shards(grid, buf, axis)
+    plan = JFFT(grid=grid)
+    xh = plan.forward(cd.scatter_global(grid, cf, 0))
+    shards["fft"] = _shards(grid, xh, 2)
+    shards["ifft"] = _shards(grid, plan.inverse(xh), 0)
+    rplan = JFFT(grid=grid, real=True)
+    rh = rplan.forward(x)
+    shards["rfft"] = _shards(rplan.complex_grid, rh, 2)
+    shards["irfft"] = _shards(grid, rplan.inverse(rh), 0)
+    return dict(name=name, config=_spec(jcfg), field=f,
+                cfield=cf, shards=shards)
+
+
+def test_four_gloo_ranks_match_jax_shards(tmp_path):
+    ac = dict(transpose_axis_contiguous=(True, True, True))
+    cases = [
+        _jax_case("even-2x2", gdims=(8, 8, 8), pdims=(2, 2)),
+        _jax_case("uneven-2x2", gdims=(9, 10, 11), pdims=(2, 2)),
+        _jax_case("even-1x4", gdims=(8, 8, 8), pdims=(1, 4)),
+        _jax_case("uneven-1x4", gdims=(9, 10, 11), pdims=(1, 4)),
+        _jax_case("even-4x1", gdims=(8, 8, 8), pdims=(4, 1)),
+        _jax_case("uneven-4x1", gdims=(9, 10, 11), pdims=(4, 1)),
+        _jax_case("uneven-2x2-ac", gdims=(9, 10, 11), pdims=(2, 2), **ac),
+        _jax_case("colmajor-mem-order", gdims=(8, 12, 10), pdims=(2, 2),
+                  rank_order=cd.RankOrder.COL_MAJOR,
+                  transpose_mem_order=((2, 1, 0), (0, 2, 1), (1, 2, 0))),
+        dict(name="empty-pencil", expect_error="empty pencil",
+             config=_spec(cd.GridConfig(gdims=(2, 2, 8), pdims=(4, 1)))),
+    ]
+    ctx = torch.multiprocessing.start_processes(
+        multirank_worker, args=(4, str(tmp_path / "pg_init"), cases),
+        nprocs=4, join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            for p in ctx.processes:
+                p.join(10)
+            pytest.fail("the 4-rank gloo run did not finish in 300 s")
+    assert all(p.exitcode == 0 for p in ctx.processes)
