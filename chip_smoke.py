@@ -6,36 +6,59 @@ that the port builds, is right and starts on the card.
 
 Phases, each of which raises on failure (nothing is caught):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the K1 local-permute kernel from the checkout's sources;
+  2. build the K1 local-permute and K4 stencil kernels from the checkout's
+     sources, in parallel; K0, the probe, runs once as each library loads;
   3. K1 against its plain twin, bit for bit: bf16/f32/f64/c64/c128, both
      cyclic perms, ragged and degenerate shapes, and the 512^3 c64 shapes
-     of the main path;
-  4. the main path: the 512^3 complex64 distributed FFT on a pdims (1, 1)
+     of the FFT path;
+  4. K4 against its plain version (stencil27_ref): f32 and f64, 7-tap and
+     dense 27-tap weights, periodic / non-periodic / mixed edges, both
+     input modes, ragged shapes and the 512^3 f32 path shape; max abs
+     difference <= 1e-6 (f32) or 1e-14 (f64) times sum|w| * max|input|;
+  5. the FFT path: the 512^3 complex64 distributed FFT on a pdims (1, 1)
      axis-contiguous grid through the public entry points.  The forward
      spectrum is held to torch.fft.fftn of the same global field (relative
      L2 error <= 1e-5), the round trip to max abs error < 5e-4, and the
      round trip must launch K1 exactly 4 times; an r2c round trip at 512^3
      must pass the same 5e-4 gate;
-  5. timing: the benchmark's round trip (ms per direction, GFLOPS), K1's
-     bandwidth beside clone() and the plain twin on the same bytes, and a
-     torch.profiler breakdown of one round trip by kernel with the card's
-     idle share.
+  6. the halo and stencil path at 512^3 float32, pdims (1, 1), through the
+     public entry points: update_halos (width 1, periodic) bit-equal to a
+     plain wrapped-index buffer; diffusion_step, the dense 27-tap
+     stencil_apply and its backward, each launching K4 once and held to a
+     plain sum of torch.roll terms; solve_cg at 256^3 (tol 1e-5), whose
+     residual recomputed plainly must be <= 2e-5, launching K4 once per
+     iteration;
+  7. timing: the FFT round trip (ms per direction, GFLOPS), K1's bandwidth
+     beside clone() and its plain twin; the diffusion step, K4 beside the
+     conv3d yardstick and its plain version, the halo update and the CG
+     iteration; torch.profiler breakdowns by kernel, with the card's idle
+     share, of one FFT round trip, one diffusion step and one CG chunk.
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}.  Exits nonzero, printing neither,
-when CUDA is not available or the package is missing.
+Before each path (5 and 6) every launch count is set to 0 and the loaded
+libraries are dropped, so the path loads them as a fresh process does
+(and K0 runs inside it); the counts are read just after.  The line before
+the last is a JSON object describing each kernel; the last line is
+{"ok": true, "device": {...}}.  Exits nonzero, printing neither, when CUDA
+is not available or the package is missing.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from statistics import mean
 
 RTOL_FFT = 1e-5      # relative L2 error of the c64 forward spectrum
 GATE = 5e-4          # round-trip max abs error (benchmark.cu:23-27)
+K4_EPS = {"float32": 1e-6, "float64": 1e-14}  # x sum|w| x max|input|
+RTOL_DIFFUSION = 1e-6  # rel L2 of the diffusion step against plain rolls
+CG_N, CG_TOL, CG_GATE = 256, 1e-5, 2e-5
 N = 512
 DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 
 
 def card_line() -> str:
@@ -108,21 +131,23 @@ def kernel_checks(torch, K, gen):
     return worst
 
 
-def main_path(torch, ct, K, bench):
-    """Phase 4: the 512^3 round trips through the public entry points."""
+def main_path(torch, ct, K, S, cb, bench):
+    """Phase 5: the 512^3 round trips through the public entry points."""
     plan = bench.make_plan(N, axis_contiguous=True, device=DEVICE)
     grid = plan.grid
     x = bench.make_field(grid, seed=1)
 
-    K.reset_launch_count()
+    reset_counts(K, S, cb)
     xh = plan.forward(x)
     back = plan.inverse(xh)
     torch.cuda.synchronize()
-    launches = K.launch_count
+    path_counts = counts(K, S, cb)
+    launches = path_counts["K1"]
 
-    if launches != 4:
-        raise AssertionError(f"c2c round trip launched K1 {launches} times, "
-                             f"expected 4")
+    if launches != 4 or path_counts["K0"] != 1:
+        raise AssertionError(f"c2c round trip launched K1 {launches} times "
+                             f"and K0 {path_counts['K0']} times, expected "
+                             f"4 and 1")
     if tuple(xh.shape) != grid.buffer_shape(2) or xh.dtype != torch.complex64:
         raise AssertionError(f"spectrum has shape {tuple(xh.shape)} "
                              f"{xh.dtype}")
@@ -158,11 +183,12 @@ def main_path(torch, ct, K, bench):
     if not r2c_err < GATE:
         raise AssertionError(f"r2c round trip max abs err {r2c_err}")
     return dict(launches=launches, rel_l2=rel, c2c_err=c2c_err,
-                r2c_err=r2c_err, r2c_launches=r2c_launches)
+                r2c_err=r2c_err, r2c_launches=r2c_launches,
+                counts=path_counts)
 
 
 def kernel_timing(torch, K, perf, gen):
-    """Phase 5b: K1, its twin and clone() on the 512^3 c64 shapes; ms per
+    """Phase 7b: K1, its twin and clone() on the 512^3 c64 shapes; ms per
     call (mean over trials) and GB/s of one read plus one write."""
     parts = torch.randn((N, N, N, 2), generator=gen, device=DEVICE)
     x = torch.view_as_complex(parts)
@@ -186,13 +212,11 @@ def kernel_timing(torch, K, perf, gen):
     return out, clone_ms, nbytes
 
 
-def profile_round_trips(torch, bench, reps=3):
-    """Phase 5c: device time by kernel over ``reps`` c2c round trips, and
-    the window those round trips took on the card (CUDA events)."""
+def profile_window(torch, fn, reps=3):
+    """Device time by kernel over ``reps`` calls of ``fn``, and the window
+    those calls took on the card (CUDA events), per call."""
     from torch.profiler import ProfilerActivity, profile
-    plan = bench.make_plan(N, axis_contiguous=True, device=DEVICE)
-    x = bench.make_field(plan.grid, seed=3)
-    bench.cycle(plan, x)
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -200,7 +224,7 @@ def profile_round_trips(torch, bench, reps=3):
                              ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(reps):
-            bench.cycle(plan, x)
+            fn()
         end.record()
         end.synchronize()
     window_ms = start.elapsed_time(end) / reps
@@ -217,6 +241,270 @@ def profile_round_trips(torch, bench, reps=3):
     return window_ms, by_name
 
 
+def print_profile(card, what, window_ms, by_name):
+    busy_ms = sum(by_name.values())
+    print(f"[{card}] profile of {what}: {window_ms:.3f} ms on the card "
+          f"(CUDA events), kernels busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / window_ms:.3f}")
+    if not by_name:
+        print("profiler saw no device time: kernel breakdown not measured")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:8.3f} ms  {ms / window_ms:6.1%}  {name[:110]}")
+
+
+def reset_counts(K, S, cb):
+    """Every launch count to 0, and the loaded libraries dropped, so the
+    next path loads them (and runs K0) as a fresh process does."""
+    K.reset_launch_count()
+    S.reset_launch_count()
+    cb.reset_probe_count()
+    cb.load.cache_clear()
+
+
+def counts(K, S, cb):
+    return {"K0": cb.probe_launch_count, "K1": K.launch_count,
+            "K4": S.launch_count}
+
+
+# -- K4 --------------------------------------------------------------------------
+
+def k4_weights(kind, seed=0):
+    import numpy as np
+    if kind == "face7":
+        w = np.zeros((3, 3, 3))
+        w[1, 1, 1] = -6.0
+        for o in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                  (1, 1, 2)):
+            w[o] = 1.0
+        return w
+    return np.random.default_rng(seed).standard_normal((3, 3, 3))
+
+
+def stencil_kernel_checks(torch, S, gen):
+    """Phase 4: K4 vs stencil27_ref; returns the largest absolute
+    difference and the largest difference over its tolerance."""
+    import numpy as np
+    dev = DEVICE
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float64).to(dtype)
+
+    def ghosts_for(u, wrap):
+        out = []
+        for d in range(3):
+            shape = list(u.shape)
+            shape[d] = 1
+            out.append(None if wrap[d] else (rand(shape, u.dtype),
+                                             rand(shape, u.dtype)))
+        return out
+
+    worst, worst_ratio = 0.0, 0.0
+    periods = {"periodic": (True, True, True),
+               "non-periodic": (False, False, False),
+               "mixed": (False, True, True)}  # x ghost, y and z wrap
+    cases = [(dt, shape) for dt in (torch.float32, torch.float64)
+             for shape in ((7, 33, 65), (1, 5, 3), (2, 2, 2), (64, 32, 96))]
+    cases.append((torch.float32, (N, N, N)))
+    for dtype, shape in cases:
+        for wkind in ("face7", "dense"):
+            w = k4_weights(wkind)
+            u = rand(shape, dtype)
+            runs = [("valid", rand(tuple(n + 2 for n in shape), dtype), None)]
+            runs += [(name, u, ghosts_for(u, wrap))
+                     for name, wrap in periods.items()]
+            for mode, x, ghosts in runs:
+                got = S.stencil27(x, w, ghosts)
+                want = S.stencil27_ref(x, w, ghosts)
+                inputs = [x] + [p for g in (ghosts or ()) if g for p in g]
+                scale = float(np.abs(w).sum()) * max(
+                    float(t.abs().max()) for t in inputs)
+                tol = K4_EPS[str(dtype).split(".")[1]] * scale
+                err = float((got - want).abs().max())
+                if got.shape != want.shape or not err <= tol:
+                    raise AssertionError(
+                        f"K4 differs from stencil27_ref: {dtype} {shape} "
+                        f"{wkind} {mode}: {err} > {tol}")
+                worst = max(worst, err)
+                worst_ratio = max(worst_ratio, err / tol)
+                del got, want
+    torch.cuda.synchronize()
+    return worst, worst_ratio
+
+
+def plain_stencil(torch, u, w):
+    """sum w[1+dx,1+dy,1+dz] * u[i+dx, j+dy, k+dz], periodic: torch.roll
+    terms, the plain reference of the path (independent of stencil27_ref)."""
+    out = torch.zeros_like(u)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                wv = float(w[1 + dx, 1 + dy, 1 + dz])
+                if wv:
+                    out += wv * torch.roll(u, (-dx, -dy, -dz), (0, 1, 2))
+    return out
+
+
+def plain_laplacian(torch, u):
+    out = -6.0 * u
+    for d in range(3):
+        for s in (-1, 1):
+            out += torch.roll(u, s, d)
+    return out
+
+
+def stencil_path(torch, ct, S, K, cb):
+    """Phase 6: the halo and stencil path through the public entry points;
+    returns the checks' numbers and the launch counts of the path."""
+    import numpy as np
+    periods = (True, True, True)
+    grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(1, 1)), DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    u = torch.randn(grid.buffer_shape(0), generator=gen, device=DEVICE)
+    g = torch.randn(grid.buffer_shape(0), generator=gen, device=DEVICE)
+    w = k4_weights("dense", seed=5)
+    res = {}
+
+    reset_counts(K, S, cb)
+    # halo update, width 1 everywhere, periodic
+    he = (1, 1, 1)
+    buf = ct.scatter_global(grid, u, 0, halo_extents=he)
+    out = ct.update_halos(grid, buf, 0, he, periods)
+    idx = torch.arange(-1, N + 1, device=DEVICE) % N
+    want = u.index_select(0, idx).index_select(1, idx).index_select(2, idx)
+    if out is not buf or not torch.equal(out, want):
+        raise AssertionError("update_halos at 512^3 differs from the plain "
+                             "wrapped-index buffer")
+    del buf, out, want
+    res["halo_launches"] = counts(K, S, cb)
+
+    # diffusion step: one K4 launch, no K1
+    before = counts(K, S, cb)
+    out = ct.diffusion_step(grid, u, 0.1)
+    after = counts(K, S, cb)
+    want = u + 0.1 * plain_laplacian(torch, u)
+    res["diffusion_rel_l2"] = float(torch.linalg.vector_norm(out - want)
+                                    / torch.linalg.vector_norm(want))
+    if after["K4"] - before["K4"] != 1 or after["K1"] != before["K1"]:
+        raise AssertionError(f"diffusion_step launched K4 "
+                             f"{after['K4'] - before['K4']} and K1 "
+                             f"{after['K1'] - before['K1']} times")
+    if not res["diffusion_rel_l2"] <= RTOL_DIFFUSION:
+        raise AssertionError(f"diffusion step rel L2 err "
+                             f"{res['diffusion_rel_l2']}")
+    del out, want
+
+    # dense 27-tap stencil_apply and its backward: one launch each
+    tol = K4_EPS["float32"] * float(np.abs(w).sum()) * float(u.abs().max())
+    x = u.clone().requires_grad_(True)
+    n0 = S.launch_count
+    out = ct.stencil_apply(grid, x, w)
+    n1 = S.launch_count
+    (grad,) = torch.autograd.grad((out * g).sum(), x)
+    n2 = S.launch_count
+    if (n1 - n0, n2 - n1) != (1, 1):
+        raise AssertionError(f"stencil_apply launched K4 {n1 - n0} times, "
+                             f"its backward {n2 - n1} times")
+    res["stencil_err"] = float((out.detach() - plain_stencil(torch, u, w))
+                               .abs().max())
+    tol_g = K4_EPS["float32"] * float(np.abs(w).sum()) * float(g.abs().max())
+    res["adjoint_err"] = float((grad - plain_stencil(
+        torch, g, w[::-1, ::-1, ::-1])).abs().max())
+    if not (res["stencil_err"] <= tol and res["adjoint_err"] <= tol_g):
+        raise AssertionError(f"27-tap stencil err {res['stencil_err']} "
+                             f"(tol {tol}), adjoint err {res['adjoint_err']}"
+                             f" (tol {tol_g})")
+    del x, out, grad
+
+    # CG at 256^3: converges, K4 once per iteration, plain residual
+    solver = ct.models.PoissonSolver(
+        grid=ct.make_grid(ct.GridConfig(gdims=(CG_N,) * 3, pdims=(1, 1)),
+                          DEVICE))
+    f = torch.randn(solver.grid.buffer_shape(0), generator=gen,
+                    device=DEVICE)
+    n0 = S.launch_count
+    sol, iters, rel = solver.solve_cg(f, tol=CG_TOL, maxiter=2000)
+    cg_launches = S.launch_count - n0
+    h = 2 * math.pi / CG_N
+    u64, f64 = sol.double(), f.double()
+    b = -(f64 - f64.mean())
+    resid = -plain_laplacian(torch, u64) / (h * h) - b
+    res.update(cg_iters=iters, cg_rel=rel, cg_launches=cg_launches,
+               cg_plain_rel=float(torch.linalg.vector_norm(resid)
+                                  / torch.linalg.vector_norm(b)))
+    if not (rel <= CG_TOL and res["cg_plain_rel"] <= CG_GATE
+            and cg_launches == iters):
+        raise AssertionError(f"solve_cg: {iters} iterations, rel "
+                             f"{rel}, plain residual {res['cg_plain_rel']} "
+                             f"(<= {CG_GATE}), {cg_launches} K4 launches")
+    torch.cuda.synchronize()
+    res["launches"] = counts(K, S, cb)
+    return res
+
+
+def stencil_timing(torch, ct, S, perf, gen):
+    """Phase 7b: the 27-tap stencil at 512^3 f32: K4 (through the public
+    entry point and alone), its plain version, the conv3d yardstick;
+    clone() of the same bytes.  ms per call, means over trials."""
+    import numpy as np
+    import torch.nn.functional as F
+    grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(1, 1)), DEVICE)
+    u = torch.randn((N, N, N), generator=gen, device=DEVICE)
+    w = k4_weights("dense", seed=5)
+    ghosts = (None, None, None)
+
+    def t(fn, iters=10):
+        return mean(perf.time_fn(fn, n_warmup=2, n_trials=5,
+                                 iters=iters)) * 1e3
+
+    # plain, kernel, kernel, plain: drift shows as disagreeing pairs
+    runs = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = (S.stencil27_ref if name == "plain" else S.stencil27)
+        runs[name].append(t(lambda: fn(u, w, ghosts), 3 if name == "plain"
+                            else 10))
+    out = {k: mean(v) for k, v in runs.items()}
+    out["runs_ms"] = runs
+    out["apply_ms"] = t(lambda: ct.stencil_apply(grid, u, w))
+    # the yardstick: cuDNN conv3d of the circularly padded field, in full
+    # float32 (TF32 off); the pad is a separate pass, not timed
+    torch.backends.cudnn.allow_tf32 = False
+    padded = F.pad(u[None, None], (1, 1, 1, 1, 1, 1), mode="circular")
+    kern = torch.tensor(w, dtype=torch.float32, device=DEVICE)[None, None]
+    conv = F.conv3d(padded, kern)[0, 0]
+    out["conv_err"] = float((conv - S.stencil27(u, w, ghosts)).abs().max())
+    del conv
+    out["conv_ms"] = t(lambda: F.conv3d(padded, kern))
+    del padded
+    out["clone_ms"] = t(u.clone)
+    out["nbytes"] = 2 * u.numel() * u.element_size()
+    out["tol"] = K4_EPS["float32"] * float(np.abs(w).sum()) * float(
+        u.abs().max())
+    return out
+
+
+def probe_timing(torch, K, cb, perf):
+    """K0 alone on its (8, 128) float32 tensor, beside clone()."""
+    lib = K._lib()
+    x = torch.arange(8 * 128, dtype=torch.float32,
+                     device=DEVICE).reshape(cb.PROBE_SHAPE)
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if lib.cudecomp_probe_copy(x.data_ptr(), y.data_ptr(), x.numel(),
+                                   stream):
+            raise RuntimeError("K0 launch failed")
+
+    ms = mean(perf.time_fn(launch, n_warmup=3, n_trials=5, iters=100)) * 1e3
+    plain = mean(perf.time_fn(x.clone, n_warmup=3, n_trials=5,
+                              iters=100)) * 1e3
+    launch()
+    torch.cuda.synchronize()
+    return ms, plain, float((y - x).abs().max())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -226,6 +514,8 @@ def main() -> int:
     import cudecomp_tpu_torch as ct
     from cudecomp_tpu_torch import bench, performance as perf
     from cudecomp_tpu_torch.ops import cuda_kernels as K
+    from cudecomp_tpu_torch.ops import stencil_kernel as S
+    from cudecomp_tpu_torch.utils import cuda_build as cb
 
     # phase 1: the card
     card = card_line()
@@ -234,10 +524,14 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
 
-    # phase 2: build K1
+    # phase 2: build K1 and K4 side by side; K0 probes each at load
+    torch.cuda.init()
     t0 = time.perf_counter()
-    lib = K.build()
-    print(f"K1 built in {time.perf_counter() - t0:.1f} s: {lib.name}")
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (K, S)))
+    print(f"K1 and K4 built and loaded in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(p.name for p in libs)}); K0 probed them "
+          f"({cb.probe_launch_count} launches)")
 
     # phase 3: K1 vs twin
     gen = torch.Generator(device=DEVICE)
@@ -246,21 +540,42 @@ def main() -> int:
     print(f"K1 bit-equal to its twin on every dtype and shape "
           f"(max abs diff {worst})")
 
-    # phase 4: the main path
-    mp = main_path(torch, ct, K, bench)
+    # phase 4: K4 vs its plain version
+    k4_worst, k4_ratio = stencil_kernel_checks(torch, S, gen)
+    print(f"K4 within tolerance of stencil27_ref on every case: max abs "
+          f"diff {k4_worst:.3e}, at most {k4_ratio:.3f} of its tolerance")
+
+    # phase 5: the FFT path
+    mp = main_path(torch, ct, K, S, cb, bench)
     print(f"512^3 c64 axis-contiguous pdims (1, 1): forward rel L2 err vs "
           f"torch.fft.fftn {mp['rel_l2']:.3e} (<= {RTOL_FFT}); c2c round "
           f"trip max abs err {mp['c2c_err']:.3e}, r2c {mp['r2c_err']:.3e} "
-          f"(< {GATE}); K1 launches per round trip: c2c {mp['launches']}, "
-          f"r2c {mp['r2c_launches']}")
+          f"(< {GATE}); launches per c2c round trip {mp['counts']}, K1 per "
+          f"r2c round trip {mp['r2c_launches']}")
 
-    # phase 5: timing
+    # phase 6: the halo and stencil path
+    torch.cuda.empty_cache()
+    sp = stencil_path(torch, ct, S, K, cb)
+    print(f"512^3 f32 pdims (1, 1): update_halos bit-equal to the plain "
+          f"buffer (launches {sp['halo_launches']}); diffusion_step rel L2 "
+          f"err {sp['diffusion_rel_l2']:.3e} (<= {RTOL_DIFFUSION}), 1 K4 "
+          f"launch; 27-tap stencil_apply max abs err {sp['stencil_err']:.3e}"
+          f", backward {sp['adjoint_err']:.3e}, 1 K4 launch each; solve_cg "
+          f"{CG_N}^3: {sp['cg_iters']} iterations, rel residual "
+          f"{sp['cg_rel']:.3e}, plain residual {sp['cg_plain_rel']:.3e} "
+          f"(<= {CG_GATE}), {sp['cg_launches']} K4 launches; path launches "
+          f"{sp['launches']}")
+    if min(sp["launches"][k] for k in ("K0", "K4")) < 1:
+        raise AssertionError(f"the stencil path skipped a kernel: "
+                             f"{sp['launches']}")
+
+    # phase 7: timing
     torch.cuda.empty_cache()
     payload = bench.main(N=N, iters=20, n_trials=3, axis_contiguous=True)
     perm_t, clone_ms, nbytes = kernel_timing(torch, K, perf, gen)
 
-    def gbs(ms):
-        return nbytes / (ms * 1e-3) / 1e9
+    def gbs(ms, nb=nbytes):
+        return nb / (ms * 1e-3) / 1e9
 
     print(f"[{card}] 512^3 c64 c2c round trip: "
           f"{payload['ms_per_direction']:.3f} ms per direction, "
@@ -271,28 +586,94 @@ def main() -> int:
               f"{t['plain']:.3f} ms = {gbs(t['plain']):.0f} GB/s; clone() "
               f"{clone_ms:.3f} ms = {gbs(clone_ms):.0f} GB/s "
               f"(runs {t['runs_ms']})")
+    torch.cuda.empty_cache()
 
-    window_ms, by_name = profile_round_trips(torch, bench)
-    busy_ms = sum(by_name.values())
-    print(f"[{card}] profile of one 512^3 c2c round trip: {window_ms:.3f} ms "
-          f"on the card (CUDA events), kernels busy {busy_ms:.3f} ms, "
-          f"idle share {1 - busy_ms / window_ms:.3f}")
-    if not by_name:
-        print("profiler saw no device time: kernel breakdown not measured")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"  {ms:8.3f} ms  {ms / window_ms:6.1%}  {name[:110]}")
+    diff = bench.stencil_headline(N=N, iters=20, n_trials=3)
+    halo = bench.halo_headline(N=N, width=1, iters=20, n_trials=3)
+    cg = bench.cg_headline(N=CG_N, tol=CG_TOL)
+    st = stencil_timing(torch, ct, S, perf, gen)
+    nb4 = st["nbytes"]
+    print(f"[{card}] 512^3 f32 diffusion step: {diff['value']:.3f} ms = "
+          f"{diff['gbps']:.0f} GB/s (trials {diff['trials_ms']}); clone() of "
+          f"the same 512 MiB {st['clone_ms']:.3f} ms = "
+          f"{gbs(st['clone_ms'], nb4):.0f} GB/s")
+    print(f"[{card}] 512^3 f32 27-tap stencil: K4 {st['kernel']:.3f} ms = "
+          f"{gbs(st['kernel'], nb4):.0f} GB/s (stencil_apply "
+          f"{st['apply_ms']:.3f} ms); conv3d (cuDNN, TF32 off, pad not "
+          f"timed) {st['conv_ms']:.3f} ms, max abs diff to K4 "
+          f"{st['conv_err']:.3e}; stencil27_ref {st['plain']:.3f} ms "
+          f"(runs {st['runs_ms']})")
+    print(f"[{card}] 512^3 f32 update_halos width 1 periodic: "
+          f"{halo['value']:.3f} ms = {halo['gbps']:.0f} GB/s of halo slabs "
+          f"(trials {halo['trials_ms']})")
+    print(f"[{card}] {CG_N}^3 f32 solve_cg tol {CG_TOL:g}: {cg['value']:.1f} "
+          f"ms, {cg['iters']} iterations, {cg['ms_per_iter']:.4f} ms per "
+          f"iteration, rel residual {cg['rel_residual']:.3e}")
+    k0_ms, k0_plain, k0_err = probe_timing(torch, K, cb, perf)
+    print(f"[{card}] K0 probe copy (8, 128) f32: {k0_ms * 1e3:.2f} us per "
+          f"launch; clone() {k0_plain * 1e3:.2f} us")
+
+    fft_plan = bench.make_plan(N, axis_contiguous=True, device=DEVICE)
+    fft_x = bench.make_field(fft_plan.grid, seed=3)
+    print_profile(card, "one 512^3 c2c round trip",
+                  *profile_window(torch, lambda: bench.cycle(fft_plan,
+                                                             fft_x)))
+    del fft_plan, fft_x
+    torch.cuda.empty_cache()
+    grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(1, 1)), DEVICE)
+    u = torch.randn((N, N, N), generator=gen, device=DEVICE)
+    print_profile(card, "one 512^3 f32 diffusion step",
+                  *profile_window(torch, lambda: ct.diffusion_step(grid, u,
+                                                                   0.1)))
+    del u
+    solver = ct.models.PoissonSolver(
+        grid=ct.make_grid(ct.GridConfig(gdims=(CG_N,) * 3, pdims=(1, 1)),
+                          DEVICE))
+    f = torch.randn((CG_N,) * 3, generator=gen, device=DEVICE)
+    print_profile(card, f"one {CG_N}^3 f32 CG chunk (64 iterations)",
+                  *profile_window(torch, lambda: solver.solve_cg(
+                      f, tol=0.0, maxiter=64, check_every=64), reps=2))
 
     t120 = perm_t[(1, 2, 0)]
-    kernels = {"kernels": [{
-        "name": "K1 transpose2d (cyclic local permute)",
-        "route": "cuda",
-        "source": "cudecomp_tpu_torch/csrc/transpose2d.cu",
-        "replaces": "cudecomp_tpu/ops/pallas_kernels.py:299",
-        "launches": mp["launches"],
-        "max_abs_err": worst,
-        "ms": t120["kernel"],
-        "plain_ms": t120["plain"],
-    }]}
+    ms_to_bound = 1e3 / HBM_BYTES_PER_S
+    k4_flops = 2 * 27 * N ** 3
+    kernels = {"kernels": [
+        {"name": "K0 probe copy",
+         "route": "cuda",
+         "source": "cudecomp_tpu_torch/csrc/probe.cu",
+         "replaces": "cudecomp_tpu/ops/pallas_kernels.py:142",
+         "launches": mp["counts"]["K0"] + sp["launches"]["K0"],
+         "max_abs_err": k0_err,
+         "ms": k0_ms,
+         "plain_ms": k0_plain,
+         "bound_ms": 2 * 8 * 128 * 4 * ms_to_bound,
+         "bound_by": "bytes",
+         "library_ms": k0_plain},
+        {"name": "K1 transpose2d (cyclic local permute)",
+         "route": "cuda",
+         "source": "cudecomp_tpu_torch/csrc/transpose2d.cu",
+         "replaces": "cudecomp_tpu/ops/pallas_kernels.py:299",
+         "launches": mp["launches"],
+         "max_abs_err": worst,
+         "ms": t120["kernel"],
+         "plain_ms": t120["plain"],
+         "bound_ms": nbytes * ms_to_bound,
+         "bound_by": "bytes",
+         "library_ms": t120["plain"]},
+        {"name": "K4 stencil27 (27-point stencil)",
+         "route": "cuda",
+         "source": "cudecomp_tpu_torch/csrc/stencil27.cu",
+         "replaces": "cudecomp_tpu/ops/stencil.py:282",
+         "launches": sp["launches"]["K4"],
+         "max_abs_err": k4_worst,
+         "ms": st["kernel"],
+         "plain_ms": st["plain"],
+         "bound_ms": max(nb4 * ms_to_bound,
+                         k4_flops / FP32_FLOP_PER_S * 1e3),
+         "bound_by": ("bytes" if nb4 / HBM_BYTES_PER_S
+                      >= k4_flops / FP32_FLOP_PER_S else "operations"),
+         "library_ms": st["conv_ms"]},
+    ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,15 @@ JAX package stays the reference and the tests hold this package to it.
     own local pencil tensor on an explicit ``torch.device``;
   * transposes exchange with ``all_to_all_single`` over one mesh dim; the
     slab path's local permute is the K1 CUDA kernel (``ops.cuda_kernels``);
-  * the distributed FFT runs ``torch.fft`` (cuFFT) between transposes.
+  * the distributed FFT runs ``torch.fft`` (cuFFT) between transposes;
+  * halo updates and the stencil path's ghost planes travel by
+    ``batch_isend_irecv`` neighbour shifts; the stencils are the K4 CUDA
+    kernel (``ops.stencil_kernel``).
 
 Ported so far: config, geometry, grid and mesh, the all-to-all exchange,
-the four transposes, the distributed FFT, ``time_fn`` and the benchmark.
+the four transposes, the distributed FFT, the halo engine, the
+ghost-plane stencil path, the CG Poisson solve, ``time_fn`` and the
+benchmark.
 """
 
 from cudecomp_tpu_torch.config import (
@@ -34,6 +39,10 @@ from cudecomp_tpu_torch.geometry import (
 from cudecomp_tpu_torch.grid import (GridDescriptor, clear_plan_caches,
                                      finalize, init, make_grid)
 from cudecomp_tpu_torch.ops.fft import DistributedFFT, fft3d, ifft3d
+from cudecomp_tpu_torch.ops.halo import update_halos
+from cudecomp_tpu_torch.ops.stencil import (diffusion_step, halo_map,
+                                            laplacian7, stencil_apply)
+from cudecomp_tpu_torch import models
 from cudecomp_tpu_torch.ops.transpose import (
     transpose_x_to_y,
     transpose_y_to_x,
@@ -68,6 +77,12 @@ __all__ = [
     "transpose_y_to_x",
     "transpose_y_to_z",
     "transpose_z_to_y",
+    "update_halos",
+    "laplacian7",
+    "diffusion_step",
+    "halo_map",
+    "stencil_apply",
+    "models",
     "DistributedFFT",
     "fft3d",
     "ifft3d",

@@ -16,6 +16,14 @@ all the time they took, and the per-trial times are reported beside it.
 
 Run: ``python -m cudecomp_tpu_torch.bench [N] [iters]``; prints one JSON
 line.
+
+Beside the FFT, the halo and stencil path's three headlines, each one
+JSON dict, mirroring the JAX bench table (``bench_full.py:265-342``):
+:func:`stencil_headline` (the fused diffusion step, 512^3 f32),
+:func:`halo_headline` (a width-1 periodic halo update, 512^3 f32) and
+:func:`cg_headline` (the CG Poisson solve, 256^3 f32, tol 1e-5).  Data
+comes from a seeded generator on the card; times are CUDA-event times over
+the whole timed window.
 """
 
 from __future__ import annotations
@@ -28,7 +36,10 @@ import torch
 
 from cudecomp_tpu_torch.config import GridConfig
 from cudecomp_tpu_torch.grid import make_grid
+from cudecomp_tpu_torch.models.poisson import PoissonSolver
 from cudecomp_tpu_torch.ops.fft import DistributedFFT
+from cudecomp_tpu_torch.ops.halo import update_halos
+from cudecomp_tpu_torch.ops.stencil import diffusion_step
 from cudecomp_tpu_torch.performance import time_fn
 
 GATE = 5e-4
@@ -75,8 +86,7 @@ def main(N: int = 512, iters: int = 20, n_trials: int = 3,
          axis_contiguous: bool = True) -> dict:
     """Time the N^3 c2c round trip on the current GPU; returns and prints
     the result."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the benchmark measures the GPU and needs CUDA")
+    _need_cuda()
     plan = make_plan(N, axis_contiguous, "cuda")
     x = make_field(plan.grid, seed=0)
     err = max_abs_err(cycle(plan, x), x)
@@ -108,6 +118,92 @@ def main(N: int = 512, iters: int = 20, n_trials: int = 3,
     }
     print(json.dumps(payload))
     return payload
+
+
+def _need_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the benchmark measures the GPU and needs CUDA")
+
+
+def _cube_grid(N: int, device="cuda"):
+    """An N^3 grid on one rank in the natural layout, as the JAX bench's
+    stencil, halo and CG headlines use."""
+    return make_grid(GridConfig(gdims=(N, N, N), pdims=(1, 1)), device)
+
+
+def halo_bytes(grid, axis: int, halo_extents, itemsize: int) -> int:
+    """Bytes a halo update of every dim moves: each halo slab read once
+    from the interior and written once, over the buffer's full face."""
+    cfg = grid.config
+    shape = grid.buffer_shape(axis, halo_extents)
+    inv = cfg.inv_mem_order(axis)
+    total = 0
+    for d in range(3):
+        face = math.prod(n for i, n in enumerate(shape) if i != inv[d])
+        total += 2 * halo_extents[d] * face
+    return 2 * total * itemsize
+
+
+def stencil_headline(N: int = 512, iters: int = 20, n_trials: int = 3,
+                     dt: float = 0.1) -> dict:
+    """ms per fused diffusion step ``u + dt * lap(u)`` (periodic, f32) and
+    its rate, one read plus one write of the field."""
+    _need_cuda()
+    grid = _cube_grid(N)
+    x = make_field(grid, seed=2, dtype=torch.float32)
+    times = time_fn(lambda: diffusion_step(grid, x, dt, 0, (True,) * 3),
+                    n_warmup=2, n_trials=n_trials, iters=iters)
+    t = sum(times) / len(times)
+    return {"metric": f"{N}^3 f32 fused diffusion step (ghost-plane "
+                      f"stencil, pdims (1, 1))",
+            "value": t * 1e3, "unit": "ms",
+            "gbps": 2 * x.numel() * x.element_size() / t / 1e9,
+            "trials_ms": [s * 1e3 for s in times],
+            "device": torch.cuda.get_device_name(0)}
+
+
+def halo_headline(N: int = 512, width: int = 1, iters: int = 20,
+                  n_trials: int = 3) -> dict:
+    """ms per halo update of the X-pencil with ``width`` halos on every
+    dim, periodic (f32), and its rate over the slabs it moves."""
+    _need_cuda()
+    grid = _cube_grid(N)
+    he = (width, width, width)
+    gen = torch.Generator(device=grid.device)
+    gen.manual_seed(4)
+    x = torch.randn(grid.buffer_shape(0, he), generator=gen,
+                    device=grid.device)
+    times = time_fn(lambda: update_halos(grid, x, 0, he, (True,) * 3),
+                    n_warmup=2, n_trials=n_trials, iters=iters)
+    t = sum(times) / len(times)
+    return {"metric": f"{N}^3 f32 halo update (x-pencil, width {width}, "
+                      f"periodic, pdims (1, 1))",
+            "value": t * 1e3, "unit": "ms",
+            "gbps": halo_bytes(grid, 0, he, x.element_size()) / t / 1e9,
+            "trials_ms": [s * 1e3 for s in times],
+            "device": torch.cuda.get_device_name(0)}
+
+
+def cg_headline(N: int = 256, tol: float = 1e-5,
+                maxiter: int = 2000) -> dict:
+    """The CG Poisson solve of a standard-normal f32 rhs: total ms (after
+    one untimed solve), iterations, ms per iteration, and the residual."""
+    _need_cuda()
+    solver = PoissonSolver(grid=_cube_grid(N))
+    f = make_field(solver.grid, seed=3, dtype=torch.float32)
+    last = {}
+
+    def solve():
+        last["out"] = solver.solve_cg(f, tol=tol, maxiter=maxiter)
+
+    (t,) = time_fn(solve, n_warmup=1, n_trials=1)
+    _, iters, rel = last["out"]
+    return {"metric": f"{N}^3 f32 Poisson CG solve (K4 matvec, tol {tol:g}, "
+                      f"pdims (1, 1))",
+            "value": t * 1e3, "unit": "ms", "iters": int(iters),
+            "rel_residual": float(rel),
+            "ms_per_iter": t * 1e3 / max(int(iters), 1),
+            "device": torch.cuda.get_device_name(0)}
 
 
 if __name__ == "__main__":

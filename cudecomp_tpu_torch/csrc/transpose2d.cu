@@ -25,7 +25,8 @@
 // left to later work.
 //
 // Plain C interface for ctypes: the launch goes on the caller's stream,
-// does not synchronise, allocates nothing, and returns cudaGetLastError().
+// does not synchronise, allocates nothing, and returns cudaGetLastError()
+// (cudecomp_cuda_error_string, in probe.cu, names the code).
 
 #include <cuda_runtime.h>
 
@@ -104,8 +105,4 @@ extern "C" int cudecomp_transpose2d(const void* in, void* out, int64_t M,
     case 16: return launch<uint4>(in, out, M, N, words, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-extern "C" const char* cudecomp_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -28,7 +28,6 @@ tensors' addresses.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from pathlib import Path
 
@@ -37,6 +36,11 @@ import torch
 from cudecomp_tpu_torch.utils import cuda_build
 
 SOURCES = ("transpose2d.cu",)
+SIGNATURES = (
+    ("cudecomp_transpose2d",
+     (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+      ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p), ctypes.c_int),
+)
 CYCLIC_PERMS = ((1, 2, 0), (2, 0, 1))
 WORD_BYTES = (16, 8, 4, 2, 1)
 
@@ -49,22 +53,16 @@ def reset_launch_count() -> None:
     launch_count = 0
 
 
-@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("transpose2d", SOURCES)
-    lib.cudecomp_transpose2d.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-    lib.cudecomp_transpose2d.restype = ctypes.c_int
-    lib.cudecomp_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cudecomp_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.load("transpose2d", SOURCES, SIGNATURES)
 
 
 def build() -> Path:
-    """Compile (if needed) and load K1; returns the library's path."""
+    """Compile (if needed) and load K1 (K0 probes it); returns the
+    library's path."""
     _lib()
-    return cuda_build.library_path("transpose2d", SOURCES)
+    return cuda_build.library_path("transpose2d",
+                                   cuda_build.library_sources(SOURCES))
 
 
 def element_bytes(x: torch.Tensor, lead: int) -> int:

@@ -14,12 +14,85 @@ pipelined transpose) and the kernel exchange (``pallas_a2a``) are not
 ported yet: they raise ``NotImplementedError`` when an exchange over more
 than one rank would run.  A slab transpose never exchanges, so on a
 ``(1, 1)`` grid every method works.
+
+Beside the transposes' exchanges:
+
+  * ``ppermute`` — a neighbour shift with ``lax.ppermute`` semantics over
+    one mesh dim, as ``batch_isend_irecv`` point-to-point pairs.  The halo
+    engine and the stencil path's ghost exchanges use it, with the pairs of
+    ``neighbour_pairs``.
+  * ``all_reduce_grid`` — a sum over every rank of a grid.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 import torch
 import torch.distributed as dist
+
+
+def ppermute(x: torch.Tensor, mesh, dim_name: str,
+             pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Shift ``x`` along mesh dim ``dim_name`` (``lax.ppermute``).
+
+    ``pairs`` are ``(src, dst)`` indices along the dim: the rank at ``src``
+    sends its ``x`` to the rank at ``dst``.  Returns what this rank
+    received, with ``x``'s shape and dtype.  A rank that no pair sends to
+    receives zeros: the stencil path's Dirichlet-0 ghost planes rest on
+    that.  ``x`` is made contiguous before it is sent (y and z face planes
+    are strided views).  Every rank of the dim must call.
+    """
+    srcs = [s for s, _ in pairs]
+    dsts = [d for _, d in pairs]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute pairs must have distinct sources and "
+                         f"distinct destinations, got {list(pairs)}")
+    group = mesh.get_group(dim_name)
+    me = dist.get_rank(group)
+    send = x.contiguous()
+    recv = torch.zeros_like(send)
+    wire_send = torch.view_as_real(send) if send.is_complex() else send
+    wire_recv = torch.view_as_real(recv) if recv.is_complex() else recv
+    ops = []
+    for src, dst in pairs:
+        if src == me and dst == me:
+            recv.copy_(send)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, wire_send,
+                                  dist.get_global_rank(group, dst), group))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, wire_recv,
+                                  dist.get_global_rank(group, src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return recv
+
+
+def neighbour_pairs(P: int, periodic: bool):
+    """The ``(src, dst)`` pairs of the two nearest-neighbour shifts along a
+    dim of ``P`` ranks: ``up`` (j -> j+1) and ``down`` (j -> j-1), with the
+    wrap pairs only when ``periodic``."""
+    up = [(j, j + 1) for j in range(P - 1)]
+    down = [(j + 1, j) for j in range(P - 1)]
+    if periodic:
+        up.append((P - 1, 0))
+        down.append((0, P - 1))
+    return up, down
+
+
+def all_reduce_grid(t: torch.Tensor, grid) -> torch.Tensor:
+    """Sum ``t`` in place over every rank of ``grid`` (one ``all_reduce``
+    per mesh dim of more than one rank; none on a ``(1, 1)`` grid) and
+    return it."""
+    if grid.mesh is None:
+        return t
+    names = grid.mesh.mesh_dim_names
+    for name, p in zip(grid.axis_names, grid.pdims):
+        if p > 1 and name in names:
+            dist.all_reduce(t, group=grid.group(name))
+    return t
 
 
 def exchange_all_to_all(blocks: torch.Tensor, group, n: int,

@@ -36,10 +36,12 @@ def _interior_slices(cfg, axis, coords, halo, pad):
 
 
 def scatter_global(grid, x_global, axis: int, halo_extents=None,
-                   padding=None) -> torch.Tensor:
+                   padding=None, fill_halos: bool = False) -> torch.Tensor:
     """This rank's local pencil ``axis`` of a global tensor (natural
     [X, Y, Z] order, shape ``gdims``, a tensor or a numpy array), on the
-    grid's device.  Halo and padding regions are zero."""
+    grid's device.  Padding regions are zero; halo regions are zero too,
+    or, with ``fill_halos=True``, hold the (periodic) global data,
+    corners included."""
     cfg = grid.config
     halo = _check_extents(halo_extents, "halo_extents")
     pad = _check_extents(padding, "padding")
@@ -51,7 +53,32 @@ def scatter_global(grid, x_global, axis: int, halo_extents=None,
     buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
     sl_local, sl_global = _interior_slices(cfg, axis, grid.coords, halo, pad)
     buf[sl_local] = x[sl_global].permute(cfg.mem_order(axis))
+    if fill_halos:
+        _fill_halos(buf, x, cfg, axis, grid.coords, halo, pad)
     return buf.to(grid.device)
+
+
+def _fill_halos(buf, x, cfg, axis, coords, halo, pad):
+    """Fill the halo regions (corners included) of ``buf`` with periodic
+    global data: per tensor dim, the (buffer position, global index) lists
+    of the low halo, the interior and the high halo (the dead zone between
+    ``valid`` and the max split stays zero), assigned in one gather."""
+    order = cfg.mem_order(axis)
+    ms = geometry.max_splits(cfg, axis)
+    pinfo = geometry.get_pencil_info(cfg, axis, coords, halo, pad)
+    pos, idx = [], [None] * 3
+    for i in range(3):
+        g = order[i]
+        h, n, lo = halo[g], cfg.gdims[g], pinfo.lo_g[g]
+        valid = pinfo.hi_g[g] - lo + 1
+        pos.append(torch.tensor(list(range(0, h + valid))
+                                + list(range(h + ms[g], h + ms[g] + h))))
+        idx[g] = torch.tensor([(lo - h + k) % n for k in range(h)]
+                              + [lo + k for k in range(valid)]
+                              + [(lo + valid + k) % n for k in range(h)])
+    src = x[idx[0][:, None, None], idx[1][None, :, None], idx[2][None, None]]
+    buf[pos[0][:, None, None], pos[1][None, :, None],
+        pos[2][None, None]] = src.permute(order)
 
 
 def _mesh_rank(grid, coords) -> int:

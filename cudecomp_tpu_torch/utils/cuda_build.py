@@ -1,10 +1,12 @@
-"""Build the package's CUDA sources into shared libraries and load them.
+"""Build the package's CUDA sources into shared libraries, load them, and
+probe each one with K0.
 
 Each library is compiled at first use by ``nvcc`` (found through
 ``torch.utils.cpp_extension.CUDA_HOME``) for Hopper::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<sources>
+         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/probe.cu \\
+         csrc/<sources>
 
 into ``cudecomp_tpu_torch/_build/`` and loaded with ``ctypes``.  Where the
 package directory cannot be written (an installed copy), the libraries go
@@ -13,6 +15,13 @@ instead.  The sources carry plain C entry points, so no PyTorch header is
 compiled and a build takes seconds.  The file name carries a hash of the
 sources and the flags, so an edited source is rebuilt and an unchanged one
 is reused.
+
+K0, the probe (``csrc/probe.cu``, the port of the TPU probe in
+``_platform_supports_pallas``), is compiled into every library.  ``load``
+launches it once per loaded library on an (8, 128) float32 tensor on the
+current CUDA device, synchronises and compares the copy bit for bit: a
+broken toolkit, driver or binary raises at load, naming the library, and
+not in the middle of a path.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import time
 from pathlib import Path
 from typing import Sequence
 
+import torch
+
 from cudecomp_tpu_torch.utils.env import log_info
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -34,6 +45,24 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: compiled into every library: K0 and the error-string entry
+PROBE_SOURCE = "probe.cu"
+PROBE_SHAPE = (8, 128)
+
+#: K0 launches since the last :func:`reset_probe_count`
+probe_launch_count = 0
+
+_COMMON_SIGNATURES = (
+    ("cudecomp_probe_copy", (ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_int64, ctypes.c_void_p), ctypes.c_int),
+    ("cudecomp_cuda_error_string", (ctypes.c_int,), ctypes.c_char_p),
+)
+
+
+def reset_probe_count() -> None:
+    global probe_launch_count
+    probe_launch_count = 0
 
 
 def nvcc_path() -> Path:
@@ -98,8 +127,43 @@ def build(name: str, sources: Sequence[str]) -> Path:
     return path
 
 
+def library_sources(sources: Sequence[str]) -> tuple:
+    """The sources of a library: K0's file, then the kernel's own."""
+    return (PROBE_SOURCE,) + tuple(sources)
+
+
+def probe(lib, name: str, device="cuda") -> None:
+    """K0: launch the library's probe copy on an (8, 128) float32 tensor,
+    wait for it and compare bit for bit; raises naming the library."""
+    global probe_launch_count
+    x = torch.arange(PROBE_SHAPE[0] * PROBE_SHAPE[1], dtype=torch.float32,
+                     device=device).reshape(PROBE_SHAPE)
+    out = torch.full_like(x, float("nan"))
+    cuda = x.device.type == "cuda"
+    stream = torch.cuda.current_stream(x.device).cuda_stream if cuda else None
+    err = lib.cudecomp_probe_copy(x.data_ptr(), out.data_ptr(), x.numel(),
+                                  stream)
+    if err != 0:
+        msg = lib.cudecomp_cuda_error_string(err).decode()
+        raise RuntimeError(f"K0 probe of library {name!r} failed to launch: "
+                           f"{msg} ({err})")
+    probe_launch_count += 1
+    if cuda:
+        torch.cuda.synchronize(x.device)  # a fault during the run shows here
+    if not torch.equal(out, x):
+        raise RuntimeError(f"K0 probe of library {name!r}: the device copy "
+                           f"differs from its input; the library's kernels "
+                           f"do not run on {x.device}")
+
+
 @functools.lru_cache(maxsize=None)
-def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Build (if needed) and load the library; cached per process.
-    ``sources`` must be hashable (a tuple)."""
-    return ctypes.CDLL(str(build(name, sources)))
+def load(name: str, sources: Sequence[str], signatures=()) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``sources`` plus K0, set
+    the ``(function, argtypes, restype)`` ``signatures``, and probe it with
+    K0.  Cached per process; ``sources`` and ``signatures`` are tuples."""
+    lib = ctypes.CDLL(str(build(name, library_sources(sources))))
+    for fn, argtypes, restype in _COMMON_SIGNATURES + tuple(signatures):
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = restype
+    probe(lib, name)
+    return lib

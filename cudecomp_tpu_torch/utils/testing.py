@@ -52,13 +52,9 @@ def check_shards_match_pencil(grid, local, axis, x_global, halo_extents=None,
 _TRANSPOSES = ("x_to_y", "y_to_z", "z_to_y", "y_to_x")
 
 
-def _run_case(case, rank_world):
-    """Check one case on this rank: 4 transposes bit-equal, FFT to atol."""
-    import cudecomp_tpu_torch as ct
-    from cudecomp_tpu_torch.ops.fft import DistributedFFT
-
-    cfg = ct.GridConfig.from_dict(case["config"])
-    grid = ct.make_grid(cfg, "cpu")
+def _checker(case, grid, rank_world):
+    """``check(name, got, atol)``: this rank's tensor against the expected
+    shard ``case["shards"][name][coords]``, bit for bit when atol is 0."""
     coords = grid.coords
     want = case["shards"]  # name -> {coords: numpy local tensor}
 
@@ -76,6 +72,18 @@ def _run_case(case, rank_world):
             err = float((got - exp).abs().max())
             raise AssertionError(f"{case['name']} {name} rank {rank_world} "
                                  f"{coords}: max abs diff {err}")
+
+    return check
+
+
+def _run_case(case, rank_world):
+    """Check one case on this rank: 4 transposes bit-equal, FFT to atol."""
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch.ops.fft import DistributedFFT
+
+    cfg = ct.GridConfig.from_dict(case["config"])
+    grid = ct.make_grid(cfg, "cpu")
+    check = _checker(case, grid, rank_world)
 
     x_global = torch.from_numpy(case["field"])
     buf = ct.scatter_global(grid, x_global, 0)
@@ -99,14 +107,96 @@ def _run_case(case, rank_world):
     check("irfft", rplan.inverse(rh), atol=1e-10)
 
 
+def _run_halo_case(case, rank_world):
+    """update_halos in place, bit-equal to the JAX buffer."""
+    import cudecomp_tpu_torch as ct
+    grid = ct.make_grid(ct.GridConfig.from_dict(case["config"]), "cpu")
+    check = _checker(case, grid, rank_world)
+    axis, he, periods = case["axis"], case["halo_extents"], case["periods"]
+    buf = ct.scatter_global(grid, torch.from_numpy(case["field"]), axis,
+                            halo_extents=he)
+    out = ct.update_halos(grid, buf, axis, he, periods)
+    if out is not buf:
+        raise AssertionError(f"{case['name']}: update_halos returned a new "
+                             f"tensor")
+    check("halo", out)
+
+
+def _run_stencil_case(case, rank_world):
+    """The ghost-plane path with sharded ghosts, to 1e-12 of JAX."""
+    import cudecomp_tpu_torch as ct
+    grid = ct.make_grid(ct.GridConfig.from_dict(case["config"]), "cpu")
+    check = _checker(case, grid, rank_world)
+    periods, w = case["periods"], case["weights"]
+    u = ct.scatter_global(grid, torch.from_numpy(case["field"]), 0)
+    c = ct.scatter_global(grid, torch.from_numpy(case["cotangent"]), 0)
+    check("stencil", ct.stencil_apply(grid, u, w, 0, periods), 1e-12)
+    check("lap", ct.laplacian7(grid, u, 0, periods), 1e-12)
+    check("diffusion", ct.diffusion_step(grid, u, 0.05, 0, periods), 1e-12)
+    check("box", ct.halo_map(grid, u, _box7, 0, 1, periods), 1e-12)
+    x = u.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad((ct.stencil_apply(grid, x, w, 0, periods)
+                                * c).sum(), x)
+    check("grad", g, 1e-12)
+
+
+def _box7(ue):
+    """Sum of the 7-point neighbourhood of each interior cell."""
+    return (ue[:-2, 1:-1, 1:-1] + ue[2:, 1:-1, 1:-1] + ue[1:-1, :-2, 1:-1]
+            + ue[1:-1, 2:, 1:-1] + ue[1:-1, 1:-1, :-2] + ue[1:-1, 1:-1, 2:]
+            + ue[1:-1, 1:-1, 1:-1])
+
+
+def _run_cg_case(case, rank_world):
+    """solve_cg: the iteration count of JAX, the solution to 1e-9."""
+    import cudecomp_tpu_torch as ct
+    grid = ct.make_grid(ct.GridConfig.from_dict(case["config"]), "cpu")
+    check = _checker(case, grid, rank_world)
+    f = ct.scatter_global(grid, torch.from_numpy(case["field"]), 0)
+    u, iters, _ = ct.models.PoissonSolver(grid=grid).solve_cg(
+        f, tol=case["tol"], check_every=case["check_every"])
+    if iters != case["iters"]:
+        raise AssertionError(f"{case['name']}: {iters} iterations, JAX "
+                             f"took {case['iters']}")
+    check("u", u, 1e-9)
+
+
+_KINDS = {"transpose": _run_case, "halo": _run_halo_case,
+          "stencil": _run_stencil_case, "cg": _run_cg_case}
+
+
+def _expect_error(case):
+    """The case's op must raise ValueError with the case's text."""
+    import cudecomp_tpu_torch as ct
+    cfg = ct.GridConfig.from_dict(case["config"])
+    grid = ct.make_grid(cfg, "cpu")
+    try:
+        if case.get("kind") == "stencil":
+            axis = case["axis"]
+            ct.laplacian7(grid, torch.zeros(grid.buffer_shape(axis)), axis)
+        else:
+            ct.transpose_x_to_y(grid, torch.zeros(grid.buffer_shape(0)))
+    except ValueError as e:
+        if case["expect_error"] not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{case['name']}: no ValueError")
+
+
 def multirank_worker(rank: int, world: int, init_file: str, cases) -> None:
     """One rank of the multi-rank test: gloo process group, then every case.
 
     ``cases``: dicts with ``name``, ``config`` (a GridConfig field dict),
-    ``field`` (real global field), ``cfield`` (complex global field) and
-    ``shards`` (op name -> {(pr, pc): expected local tensor as numpy}).
-    A case with ``expect_error`` instead checks that the X->Y transpose
-    raises ValueError with that text.
+    ``shards`` (op name -> {(pr, pc): expected local tensor as numpy}) and
+    a ``kind``: ``transpose`` (the default: the four transposes and the
+    FFTs of ``field`` and ``cfield``), ``halo`` (``update_halos`` of
+    ``field`` with ``axis``, ``halo_extents`` and ``periods``), ``stencil``
+    (the ghost-plane path of ``field`` with ``weights`` and ``periods``,
+    and the gradient against ``cotangent``) or ``cg`` (``solve_cg`` of
+    ``field`` with ``tol`` and ``check_every``, taking ``iters``
+    iterations).  A case with ``expect_error`` instead checks that its op
+    (the X->Y transpose, or ``laplacian7`` on pencil ``axis`` for a stencil
+    case) raises ValueError with that text.
     """
     import torch.distributed as dist
 
@@ -118,18 +208,9 @@ def multirank_worker(rank: int, world: int, init_file: str, cases) -> None:
     try:
         for case in cases:
             if "expect_error" in case:
-                cfg = ct.GridConfig.from_dict(case["config"])
-                grid = ct.make_grid(cfg, "cpu")
-                x = torch.zeros(grid.buffer_shape(0))
-                try:
-                    ct.transpose_x_to_y(grid, x)
-                except ValueError as e:
-                    if case["expect_error"] not in str(e):
-                        raise
-                else:
-                    raise AssertionError(f"{case['name']}: no ValueError")
-                continue
-            _run_case(case, rank)
+                _expect_error(case)
+            else:
+                _KINDS[case.get("kind", "transpose")](case, rank)
         dist.barrier()
     finally:
         ct.clear_plan_caches()

@@ -1,15 +1,19 @@
-"""K1 (the local-permute kernel) of cudecomp_tpu_torch.
+"""The CUDA kernels of cudecomp_tpu_torch: K1 (the local permute), K4 (the
+27-point stencil) and K0 (the probe every library runs at load).
 
 On the CPU the wrappers run their plain twins, which must be bit-equal to
-the JAX package's Pallas kernels run in interpret mode.  The CUDA kernel
-itself is checked against its twin by the ``gpu`` tests, which skip
-without a card.  JAX is imported inside the tests that compare with it,
+the JAX package's Pallas kernels run in interpret mode (K4's plain version
+is held to JAX in ``test_torch_stencil.py``).  The CUDA kernels themselves
+are checked against their twins by the ``gpu`` tests, which skip without
+a card.  JAX is imported inside the tests that compare with it,
 so that on a machine without JAX the ``gpu`` tests run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
 """
 
+import ctypes
 import stat
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ import torch
 
 import cudecomp_tpu_torch as ct
 from cudecomp_tpu_torch.ops import cuda_kernels as K
+from cudecomp_tpu_torch.ops import stencil_kernel as S
 from cudecomp_tpu_torch.utils import cuda_build
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
@@ -231,6 +236,67 @@ def test_kernel_source_is_packaged():
         cuda_build.PACKAGE_DIR / "_build")
 
 
+# -- K0, the probe at load ------------------------------------------------------------
+
+class _FakeLib:
+    """A library whose probe entry copies (or not) on the host, or fails."""
+
+    def __init__(self, copy=True, err=0):
+        self.copy, self.err = copy, err
+
+    def cudecomp_probe_copy(self, src, dst, n, stream):
+        if self.copy:
+            ctypes.memmove(dst, src, n * 4)
+        return self.err
+
+    def cudecomp_cuda_error_string(self, err):
+        return b"too many resources requested for launch"
+
+
+def test_probe_counts_and_compares_bit_for_bit():
+    before = cuda_build.probe_launch_count
+    cuda_build.probe(_FakeLib(), "k", device="cpu")
+    assert cuda_build.probe_launch_count == before + 1
+    with pytest.raises(RuntimeError, match="K0 probe of library 'k'.*differs"):
+        cuda_build.probe(_FakeLib(copy=False), "k", device="cpu")
+    with pytest.raises(RuntimeError, match="failed to launch: too many"):
+        cuda_build.probe(_FakeLib(err=701), "k", device="cpu")
+    assert cuda_build.probe_launch_count == before + 2  # a failed launch
+    cuda_build.reset_probe_count()
+    assert cuda_build.probe_launch_count == 0
+
+
+def test_load_builds_with_the_probe_and_probes_once(monkeypatch):
+    built, probed = [], []
+    monkeypatch.setattr(cuda_build, "build",
+                        lambda name, srcs: built.append(srcs) or "lib.so")
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL",
+                        lambda path: types.SimpleNamespace(
+                            **{fn: types.SimpleNamespace() for fn in (
+                                "cudecomp_probe_copy",
+                                "cudecomp_cuda_error_string", "k_entry")}))
+    monkeypatch.setattr(cuda_build, "probe",
+                        lambda lib, name: probed.append(name))
+    sig = (("k_entry", (ctypes.c_void_p, ctypes.c_int64), ctypes.c_int),)
+    cuda_build.load.cache_clear()
+    try:
+        lib = cuda_build.load("k", ("k.cu",), sig)
+        assert cuda_build.load("k", ("k.cu",), sig) is lib
+    finally:
+        cuda_build.load.cache_clear()
+    assert built == [("probe.cu", "k.cu")] and probed == ["k"]
+    assert lib.k_entry.argtypes == [ctypes.c_void_p, ctypes.c_int64]
+    assert lib.k_entry.restype is ctypes.c_int
+    assert lib.cudecomp_probe_copy.restype is ctypes.c_int
+
+
+def test_every_library_carries_the_probe():
+    for sources in (K.SOURCES, S.SOURCES):
+        srcs = cuda_build.library_sources(sources)
+        assert srcs[0] == cuda_build.PROBE_SOURCE
+        assert all((cuda_build.CSRC_DIR / s).is_file() for s in srcs)
+
+
 # -- on the card -------------------------------------------------------------------
 
 @pytest.fixture
@@ -326,3 +392,115 @@ def test_gpu_rejects_what_k1_cannot_move(cuda):
                          (1, 2, 0))
     with pytest.raises(ValueError, match="contiguous"):
         K.transpose2d(torch.zeros(6, 8, device=cuda)[:, ::2])
+
+
+# -- K4 and K0 on the card ---------------------------------------------------------
+
+def _k4_weights(kind, seed=0):
+    if kind == "face7":
+        w = np.zeros((3, 3, 3))
+        w[1, 1, 1] = -6.0
+        for o in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                  (1, 1, 2)):
+            w[o] = 1.0
+        return w
+    return np.random.default_rng(seed).standard_normal((3, 3, 3))
+
+
+def _k4_ghosts(u, wrap, gen):
+    """Random ghost planes for each memory dim that does not wrap."""
+    out = []
+    for d in range(3):
+        if wrap[d]:
+            out.append(None)
+            continue
+        shape = list(u.shape)
+        shape[d] = 1
+        out.append(tuple(torch.randn(shape, generator=gen, device=u.device,
+                                     dtype=torch.float64).to(u.dtype)
+                         for _ in range(2)))
+    return out
+
+
+def _k4_tol(u, w):
+    eps = 1e-6 if u.dtype == torch.float32 else 1e-14
+    return eps * float(np.abs(w).sum()) * float(u.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wkind", ["face7", "dense"])
+def test_gpu_stencil27_matches_ref(cuda, dtype, wkind):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    w = _k4_weights(wkind)
+    for shape in ((7, 33, 65), (1, 5, 3), (2, 2, 2), (64, 32, 96)):
+        u = torch.randn(shape, generator=gen, device=cuda,
+                        dtype=torch.float64).to(dtype)
+        ue = torch.randn(tuple(n + 2 for n in shape), generator=gen,
+                         device=cuda, dtype=torch.float64).to(dtype)
+        cases = [(ue, None)] + [
+            (u, _k4_ghosts(u, wrap, gen))
+            for wrap in ((True, True, True), (False, False, False),
+                         (False, True, True))]
+        for x, ghosts in cases:
+            before = S.launch_count
+            got = S.stencil27(x, w, ghosts)
+            torch.cuda.synchronize()
+            assert S.launch_count == before + 1
+            want = S.stencil27_ref(x, w, ghosts)
+            assert got.shape == want.shape == shape
+            err = float((got - want).abs().max())
+            assert err <= _k4_tol(x, w), (shape, ghosts is None, err)
+
+
+@pytest.mark.gpu
+def test_gpu_stencil27_rejects_what_it_cannot_take(cuda):
+    w = _k4_weights("dense")
+    with pytest.raises(ValueError, match="float32 and float64"):
+        S.stencil27(torch.zeros(4, 4, 4, device=cuda, dtype=torch.bfloat16),
+                    w, (None, None, None))
+    with pytest.raises(ValueError, match="contiguous"):
+        S.stencil27(torch.zeros(4, 4, 8, device=cuda)[:, :, ::2], w,
+                    (None, None, None))
+
+
+@pytest.mark.gpu
+def test_gpu_probe_runs_at_load(cuda):
+    cuda_build.load.cache_clear()
+    before = cuda_build.probe_launch_count
+    S.build()
+    K.build()
+    assert cuda_build.probe_launch_count == before + 2
+    S.build()  # a loaded library is not probed again
+    assert cuda_build.probe_launch_count == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("periods", [(True, True, True), (False, True, True),
+                                     (False, False, False)])
+def test_gpu_stencil_path_launches_k4_once(cuda, periods):
+    # the public entry points on a CUDA grid: one K4 launch each, one more
+    # for the backward, and the CPU's numbers
+    cfg = ct.GridConfig(gdims=(16, 12, 40), pdims=(1, 1))
+    cpu, gpu = ct.make_grid(cfg, "cpu"), ct.make_grid(cfg, cuda)
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal(cfg.gdims))
+    g = torch.from_numpy(rng.standard_normal(cfg.gdims))
+    w = rng.standard_normal((3, 3, 3))
+    calls = [lambda grid, v: ct.diffusion_step(grid, v, 0.1, 0, periods),
+             lambda grid, v: ct.laplacian7(grid, v, 0, periods),
+             lambda grid, v: ct.stencil_apply(grid, v, w, 0, periods)]
+    for call in calls:
+        before = S.launch_count
+        got = call(gpu, a.to(cuda))
+        assert S.launch_count == before + 1
+        torch.testing.assert_close(got.cpu(), call(cpu, a), rtol=0,
+                                   atol=1e-12)
+    b = a.to(cuda).requires_grad_(True)
+    before = S.launch_count
+    (grad,) = torch.autograd.grad(
+        (ct.stencil_apply(gpu, b, w, 0, periods) * g.to(cuda)).sum(), b)
+    assert S.launch_count == before + 2
+    want = ct.stencil_apply(cpu, g, w[::-1, ::-1, ::-1], 0, periods)
+    torch.testing.assert_close(grad.cpu(), want, rtol=0, atol=1e-12)

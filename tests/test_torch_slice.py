@@ -1,6 +1,7 @@
-"""The port's slice end to end: the benchmark's round trip against the JAX
-package, the 4-rank gloo run of transposes and FFTs against the JAX
-shards, and the port's independence from JAX."""
+"""The port's slices end to end: the benchmark's round trip against the
+JAX package, the 4-rank gloo run of transposes, FFTs, halo updates, the
+ghost-plane stencil path and the CG solve against the JAX shards, and the
+port's independence from JAX."""
 
 import dataclasses
 import enum
@@ -20,6 +21,7 @@ import torch
 
 import cudecomp_tpu as cd
 from cudecomp_tpu import geometry as jgeo
+from cudecomp_tpu.models import PoissonSolver as JPoisson
 from cudecomp_tpu.ops.fft import DistributedFFT as JFFT
 from cudecomp_tpu.utils.arrays import coords_of_shard_index
 
@@ -77,6 +79,9 @@ def test_port_never_imports_jax():
     code = ("import sys, cudecomp_tpu_torch, cudecomp_tpu_torch.bench, "
             "cudecomp_tpu_torch.performance, "
             "cudecomp_tpu_torch.ops.cuda_kernels, "
+            "cudecomp_tpu_torch.ops.stencil_kernel, "
+            "cudecomp_tpu_torch.ops.halo, cudecomp_tpu_torch.ops.stencil, "
+            "cudecomp_tpu_torch.models, "
             "cudecomp_tpu_torch.utils.cuda_build, "
             "cudecomp_tpu_torch.utils.testing, cudecomp_tpu_torch.utils.env\n"
             "bad = [m for m in sys.modules if m == 'jax' "
@@ -152,6 +157,65 @@ def _jax_case(name, **kw):
                 cfield=cf, shards=shards)
 
 
+def _jax_grid(**kw):
+    jcfg = cd.GridConfig(**kw)
+    n = jcfg.pdims[0] * jcfg.pdims[1]
+    return jcfg, cd.make_grid(jcfg, devices=jax.devices()[:n])
+
+
+def _jax_halo_case(name, axis, he, periods, **kw):
+    jcfg, grid = _jax_grid(**kw)
+    f = np.random.default_rng(zlib.crc32(name.encode())).standard_normal(
+        jcfg.gdims)
+    buf = cd.scatter_global(grid, f, axis, halo_extents=he)
+    out = cd.update_halos(grid, buf, axis, he, periods)
+    local = jgeo.pencil_buffer_shape(jcfg, axis, he)
+    shards = {}
+    for shard in out.addressable_shards:
+        coords = coords_of_shard_index(grid, axis, shard.index, local)
+        shards[tuple(int(c) for c in coords)] = np.asarray(shard.data)
+    return dict(name=name, kind="halo", config=_spec(jcfg), field=f,
+                axis=axis, halo_extents=he, periods=periods,
+                shards={"halo": shards})
+
+
+def _jax_box7(ue):
+    return (ue[:-2, 1:-1, 1:-1] + ue[2:, 1:-1, 1:-1] + ue[1:-1, :-2, 1:-1]
+            + ue[1:-1, 2:, 1:-1] + ue[1:-1, 1:-1, :-2] + ue[1:-1, 1:-1, 2:]
+            + ue[1:-1, 1:-1, 1:-1])
+
+
+def _jax_stencil_case(name, periods, **kw):
+    jcfg, grid = _jax_grid(**kw)
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    f = rng.standard_normal(jcfg.gdims)
+    c = rng.standard_normal(jcfg.gdims)
+    w = rng.standard_normal((3, 3, 3))
+    u = cd.scatter_global(grid, f, 0)
+    cv = cd.scatter_global(grid, c, 0)
+    grad = jax.grad(lambda v: jnp.sum(
+        cd.stencil_apply(grid, v, w, 0, periods) * cv))(u)
+    outs = {"stencil": cd.stencil_apply(grid, u, w, 0, periods),
+            "lap": cd.laplacian7(grid, u, 0, periods),
+            "diffusion": cd.diffusion_step(grid, u, 0.05, 0, periods),
+            "box": cd.halo_map(grid, u, _jax_box7, 0, 1, periods),
+            "grad": grad}
+    return dict(name=name, kind="stencil", config=_spec(jcfg), field=f,
+                cotangent=c, weights=w, periods=periods,
+                shards={k: _shards(grid, v, 0) for k, v in outs.items()})
+
+
+def _jax_cg_case(name, **kw):
+    jcfg, grid = _jax_grid(**kw)
+    f = np.random.default_rng(zlib.crc32(name.encode())).standard_normal(
+        jcfg.gdims)
+    u, iters, _ = JPoisson(grid=grid).solve_cg(
+        cd.scatter_global(grid, f, 0), tol=1e-12, check_every=8)
+    return dict(name=name, kind="cg", config=_spec(jcfg), field=f,
+                tol=1e-12, check_every=8, iters=int(iters),
+                shards={"u": _shards(grid, u, 0)})
+
+
 def test_four_gloo_ranks_match_jax_shards(tmp_path):
     ac = dict(transpose_axis_contiguous=(True, True, True))
     cases = [
@@ -167,6 +231,31 @@ def test_four_gloo_ranks_match_jax_shards(tmp_path):
                   transpose_mem_order=((2, 1, 0), (0, 2, 1), (1, 2, 0))),
         dict(name="empty-pencil", expect_error="empty pencil",
              config=_spec(cd.GridConfig(gdims=(2, 2, 8), pdims=(4, 1)))),
+        # the halo engine: sharded exchanges, uneven splits, edges kept
+        _jax_halo_case("halo-2x2", 0, (1, 2, 1), (True, False, True),
+                       gdims=(8, 8, 8), pdims=(2, 2)),
+        _jax_halo_case("halo-uneven-2x2", 1, (1, 1, 2), (False, True, True),
+                       gdims=(9, 10, 11), pdims=(2, 2)),
+        _jax_halo_case("halo-1x4-pallas", 2, (2, 2, 1), (True, True, False),
+                       gdims=(9, 10, 11), pdims=(1, 4),
+                       halo_method=cd.HaloMethod.PALLAS),
+        _jax_halo_case("halo-uneven-1x4-ac", 0, (1, 1, 1), (True, True, True),
+                       gdims=(9, 10, 11), pdims=(1, 4),
+                       transpose_axis_contiguous=(True, True, True)),
+        # the stencil path with sharded ghosts: periodic (sharded y and z
+        # ghost planes serve the face taps) and Dirichlet (the dense taps
+        # take the ghost-extended block: x with zero ghosts, y wrapping
+        # locally, z sharded with zero edge ghosts)
+        _jax_stencil_case("stencil-2x2", (True, True, True),
+                          gdims=(8, 8, 12), pdims=(2, 2)),
+        _jax_stencil_case("stencil-1x4-dirichlet", (False, True, False),
+                          gdims=(8, 8, 12), pdims=(1, 4)),
+        dict(name="stencil-uneven", kind="stencil", axis=1,
+             expect_error="divisible",
+             config=_spec(cd.GridConfig(gdims=(9, 8, 8), pdims=(2, 2)))),
+        # the CG solve's dots summed over the ranks
+        _jax_cg_case("cg-2x2", gdims=(8, 8, 8), pdims=(2, 2)),
+        _jax_cg_case("cg-1x4", gdims=(8, 8, 8), pdims=(1, 4)),
     ]
     ctx = torch.multiprocessing.start_processes(
         multirank_worker, args=(4, str(tmp_path / "pg_init"), cases),
