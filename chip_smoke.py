@@ -6,8 +6,9 @@ that the port builds, is right and starts on the card.
 
 Phases, each of which raises on failure (nothing is caught):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the K1 local-permute and K4 stencil kernels from the checkout's
-     sources, in parallel; K0, the probe, runs once as each library loads;
+  2. build the K1 local-permute, K4 stencil and K5 fused 2-axis DFT
+     kernels from the checkout's sources, in parallel; K0, the probe, runs
+     once as each library loads;
   3. K1 against its plain twin, bit for bit: bf16/f32/f64/c64/c128, both
      cyclic perms, ragged and degenerate shapes, and the 512^3 c64 shapes
      of the FFT path;
@@ -15,6 +16,10 @@ Phases, each of which raises on failure (nothing is caught):
      dense 27-tap weights, periodic / non-periodic / mixed edges, both
      input modes, ragged shapes and the 512^3 f32 path shape; max abs
      difference <= 1e-6 (f32) or 1e-14 (f64) times sum|w| * max|input|;
+     K5 against its plain version (dft2_ref) and against complex128
+     torch.fft.fftn over dims (1, 2), forward and inverse, on
+     (129, 256, 256), (256, 256, 256), (16, 8, 128) and (3, 8, 128):
+     max abs difference <= 1e-5 * max|reference|;
   5. the FFT path: the 512^3 complex64 distributed FFT on a pdims (1, 1)
      axis-contiguous grid through the public entry points.  The forward
      spectrum is held to torch.fft.fftn of the same global field (relative
@@ -27,23 +32,39 @@ Phases, each of which raises on failure (nothing is caught):
      stencil_apply and its backward, each launching K4 once and held to a
      plain sum of torch.roll terms; solve_cg at 256^3 (tol 1e-5), whose
      residual recomputed plainly must be <= 2e-5, launching K4 once per
-     iteration;
-  7. timing: the FFT round trip (ms per direction, GFLOPS), K1's bandwidth
+     iteration.  Phases 5 and 6 run with CUDECOMP_TPU_FFT_FUSED2 unset and
+     must launch K5 no time;
+  7. the spectral path at 256^3 float32, pdims (1, 1), natural layout,
+     with CUDECOMP_TPU_FFT_FUSED2=1 for the K5 cases only: the
+     split-complex PoissonSolver on u = sin x cos 2y sin 3z (solve within
+     1e-5 rel L2 of u; solve(discrete=True) within 1e-5 of the closed-form
+     discrete solution, and its plain 7-point Laplacian within 2e-4 of f;
+     2 K5 launches per solve; the knob off: 0 launches, within 1e-5); two
+     RK4 steps of the ProjectionSolver on the extruded Taylor-Green field
+     (within 1e-5 of R(z)^n u0, max|div_h u| <= 1e-4 max|u|, 8 K5 launches
+     per step); the Taylor-Green solver at Re 1600, IF-RK4, dt 2e-3, 250
+     steps to t = 0.5, energy and dissipation at t = 0.1 ... 0.5 within
+     1e-4 of docs/tg_validation_n256.csv (the JAX package's f32 curve);
+  8. timing: the FFT round trip (ms per direction, GFLOPS), K1's bandwidth
      beside clone() and its plain twin; the diffusion step, K4 beside the
      conv3d yardstick and its plain version, the halo update and the CG
-     iteration; torch.profiler breakdowns by kernel, with the card's idle
-     share, of one FFT round trip, one diffusion step and one CG chunk.
+     iteration; K5 beside its bound, dft2_ref and cuFFT at (129, 256,
+     256); the Poisson solve with K5 on and off, the Taylor-Green step and
+     the projection-solver step; torch.profiler breakdowns by kernel, with
+     the card's idle share, of one FFT round trip, one diffusion step, one
+     CG chunk, one Taylor-Green step and one K5 Poisson solve.
 
-Before each path (5 and 6) every launch count is set to 0 and the loaded
-libraries are dropped, so the path loads them as a fresh process does
-(and K0 runs inside it); the counts are read just after.  The line before
-the last is a JSON object describing each kernel; the last line is
+Before each path (5, 6 and 7) every launch count is set to 0 and the
+loaded libraries are dropped, so the path loads them as a fresh process
+does (and K0 runs inside it); the counts are read just after.  The line
+before the last is a JSON object describing each kernel; the last line is
 {"ok": true, "device": {...}}.  Exits nonzero, printing neither, when CUDA
 is not available or the package is missing.
 """
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -57,6 +78,11 @@ RTOL_DIFFUSION = 1e-6  # rel L2 of the diffusion step against plain rolls
 CG_N, CG_TOL, CG_GATE = 256, 1e-5, 2e-5
 N = 512
 DEVICE = "cuda"
+NS = 256             # the spectral path's grid
+K5_EPS = 1e-5        # x max|reference| (tests/test_mxu_fft.py:94)
+RTOL_SPECTRAL = 1e-5
+LAP_GATE = 2e-4      # the 7-point operator amplifies u's f32 rounding
+TG_STEPS, TG_DT, TG_RTOL = 250, 2e-3, 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 
@@ -131,17 +157,17 @@ def kernel_checks(torch, K, gen):
     return worst
 
 
-def main_path(torch, ct, K, S, cb, bench):
+def main_path(torch, ct, K, S, D, cb, bench):
     """Phase 5: the 512^3 round trips through the public entry points."""
     plan = bench.make_plan(N, axis_contiguous=True, device=DEVICE)
     grid = plan.grid
     x = bench.make_field(grid, seed=1)
 
-    reset_counts(K, S, cb)
+    reset_counts(K, S, D, cb)
     xh = plan.forward(x)
     back = plan.inverse(xh)
     torch.cuda.synchronize()
-    path_counts = counts(K, S, cb)
+    path_counts = counts(K, S, D, cb)
     launches = path_counts["K1"]
 
     if launches != 4 or path_counts["K0"] != 1:
@@ -252,18 +278,19 @@ def print_profile(card, what, window_ms, by_name):
         print(f"  {ms:8.3f} ms  {ms / window_ms:6.1%}  {name[:110]}")
 
 
-def reset_counts(K, S, cb):
+def reset_counts(K, S, D, cb):
     """Every launch count to 0, and the loaded libraries dropped, so the
     next path loads them (and runs K0) as a fresh process does."""
     K.reset_launch_count()
     S.reset_launch_count()
+    D.reset_launch_count()
     cb.reset_probe_count()
     cb.load.cache_clear()
 
 
-def counts(K, S, cb):
+def counts(K, S, D, cb):
     return {"K0": cb.probe_launch_count, "K1": K.launch_count,
-            "K4": S.launch_count}
+            "K4": S.launch_count, "K5": D.launch_count}
 
 
 # -- K4 --------------------------------------------------------------------------
@@ -353,7 +380,7 @@ def plain_laplacian(torch, u):
     return out
 
 
-def stencil_path(torch, ct, S, K, cb):
+def stencil_path(torch, ct, S, K, D, cb):
     """Phase 6: the halo and stencil path through the public entry points;
     returns the checks' numbers and the launch counts of the path."""
     import numpy as np
@@ -366,7 +393,7 @@ def stencil_path(torch, ct, S, K, cb):
     w = k4_weights("dense", seed=5)
     res = {}
 
-    reset_counts(K, S, cb)
+    reset_counts(K, S, D, cb)
     # halo update, width 1 everywhere, periodic
     he = (1, 1, 1)
     buf = ct.scatter_global(grid, u, 0, halo_extents=he)
@@ -377,12 +404,12 @@ def stencil_path(torch, ct, S, K, cb):
         raise AssertionError("update_halos at 512^3 differs from the plain "
                              "wrapped-index buffer")
     del buf, out, want
-    res["halo_launches"] = counts(K, S, cb)
+    res["halo_launches"] = counts(K, S, D, cb)
 
     # diffusion step: one K4 launch, no K1
-    before = counts(K, S, cb)
+    before = counts(K, S, D, cb)
     out = ct.diffusion_step(grid, u, 0.1)
-    after = counts(K, S, cb)
+    after = counts(K, S, D, cb)
     want = u + 0.1 * plain_laplacian(torch, u)
     res["diffusion_rel_l2"] = float(torch.linalg.vector_norm(out - want)
                                     / torch.linalg.vector_norm(want))
@@ -439,7 +466,7 @@ def stencil_path(torch, ct, S, K, cb):
                              f"{rel}, plain residual {res['cg_plain_rel']} "
                              f"(<= {CG_GATE}), {cg_launches} K4 launches")
     torch.cuda.synchronize()
-    res["launches"] = counts(K, S, cb)
+    res["launches"] = counts(K, S, D, cb)
     return res
 
 
@@ -484,6 +511,190 @@ def stencil_timing(torch, ct, S, perf, gen):
     return out
 
 
+# -- K5 and the spectral path ----------------------------------------------------
+
+def complex_field(torch, shape, gen):
+    return torch.view_as_complex(torch.randn(tuple(shape) + (2,),
+                                             generator=gen, device=DEVICE))
+
+
+def dft2_kernel_checks(torch, D, gen):
+    """Phase 4: K5 vs dft2_ref and vs complex128 cuFFT over dims (1, 2),
+    forward and inverse; returns the largest absolute difference to
+    dft2_ref and the largest relative (over max|reference|) to each."""
+    worst = {"abs": 0.0, "ref": 0.0, "c128": 0.0}
+    for shape in ((NS // 2 + 1, NS, NS), (NS, NS, NS), (16, 8, 128),
+                  (3, 8, 128)):
+        x = complex_field(torch, shape, gen)
+        for inverse in (False, True):
+            got = D.dft2(x, inverse)
+            ref = D.dft2_ref(x, inverse)
+            fft = torch.fft.ifftn if inverse else torch.fft.fftn
+            c128 = fft(x.to(torch.complex128), dim=(1, 2))
+            err = float((got - ref).abs().max())
+            e_ref = err / float(ref.abs().max())
+            e_c = float((got.to(torch.complex128) - c128).abs().max()
+                        / c128.abs().max())
+            if got.shape != x.shape or not (e_ref <= K5_EPS
+                                            and e_c <= K5_EPS):
+                raise AssertionError(
+                    f"K5 {shape} inverse={inverse}: {e_ref:.3e} of "
+                    f"max|dft2_ref|, {e_c:.3e} of max|complex128 cuFFT| "
+                    f"(<= {K5_EPS})")
+            worst = {"abs": max(worst["abs"], err),
+                     "ref": max(worst["ref"], e_ref),
+                     "c128": max(worst["c128"], e_c)}
+            del got, ref, c128
+    torch.cuda.synchronize()
+    return worst
+
+
+def rel_l2(torch, a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def tg_reference():
+    """docs/tg_validation_n256.csv: {t index (t = 0.1 k): (energy,
+    dissipation)}, the JAX package's f32 curve at 256^3."""
+    import csv
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "docs" / "tg_validation_n256.csv"
+    out = {}
+    with open(path) as fh:
+        for row in csv.DictReader(fh):
+            k = round(float(row["t"]) / 0.1)
+            out[k] = (float(row["kinetic_energy"]), float(row["dissipation"]))
+    return out
+
+
+def spectral_path(torch, ct, bench, K, S, D, cb):
+    """Phase 7: the spectral path at 256^3 f32 through the public entry
+    points; returns the checks' numbers and the path's launch counts."""
+    from cudecomp_tpu_torch.models.incompressible import rk_stability
+    grid = ct.make_grid(ct.GridConfig(gdims=(NS,) * 3, pdims=(1, 1)), DEVICE)
+    h = 2 * math.pi / NS
+    xs = torch.arange(NS, device=DEVICE, dtype=torch.float64) * h
+    x, y, z = torch.meshgrid(xs, xs, xs, indexing="ij")
+    u_exact = torch.sin(x) * torch.cos(2 * y) * torch.sin(3 * z)
+    del x, y, z
+    f = (-14.0 * u_exact).float()
+    # the discrete solution of a single Fourier mode: f over its 7-point
+    # eigenvalue
+    lam = -sum(4 / h ** 2 * math.sin(k * h / 2) ** 2 for k in (1, 2, 3))
+    res = {}
+
+    reset_counts(K, S, D, cb)
+    solver = ct.models.PoissonSolver(grid=grid, split_complex=True)
+    with bench.fused2(True):
+        n0 = D.launch_count
+        u = solver.solve(f)
+        n1 = D.launch_count
+        ud = solver.solve(f, discrete=True)
+        n2 = D.launch_count
+    with bench.fused2(False):
+        u_off = solver.solve(f)
+        n3 = D.launch_count
+    res["poisson_launches"] = (n1 - n0, n2 - n1, n3 - n2)
+    res["poisson_rel"] = rel_l2(torch, u, u_exact)
+    res["discrete_rel"] = rel_l2(torch, ud, f.double() / lam)
+    res["lap_rel"] = rel_l2(torch, plain_laplacian(torch, ud.double())
+                            / (h * h), f)
+    res["off_rel"] = rel_l2(torch, u_off, u)
+    if res["poisson_launches"] != (2, 2, 0) or u.dtype != torch.float32:
+        raise AssertionError(f"Poisson solves launched K5 "
+                             f"{res['poisson_launches']} times (knob on, "
+                             f"on, off), expected (2, 2, 0); u is {u.dtype}")
+    if not (max(res["poisson_rel"], res["discrete_rel"], res["off_rel"])
+            <= RTOL_SPECTRAL and res["lap_rel"] <= LAP_GATE):
+        raise AssertionError(f"Poisson {NS}^3: {res}")
+    del u, ud, u_off, u_exact
+
+    ns = ct.models.ProjectionSolver(grid=grid, nu=0.01, split_complex=True)
+    u0, fns = ns.setup_tg(torch.float32)
+    dt, un, per_step = 1e-2, u0, []
+    with bench.fused2(True):
+        for _ in range(2):
+            n0 = D.launch_count
+            un = ns.step(un, fns, dt)
+            per_step.append(D.launch_count - n0)
+    amp = rk_stability("rk4", ns.viscous_eigenvalue((1, 1, 0)) * dt) ** 2
+    res["ns_launches"] = per_step
+    res["ns_rel"] = rel_l2(torch, un, amp * u0.double())
+    res["ns_div"] = float(ns.max_divergence(un)) / float(un.abs().max())
+    if per_step != [8, 8] or un.dtype != torch.float32:
+        raise AssertionError(f"projection steps launched K5 {per_step} "
+                             f"times, expected [8, 8]; u is {un.dtype}")
+    if not (res["ns_rel"] <= RTOL_SPECTRAL and res["ns_div"] <= 1e-4):
+        raise AssertionError(f"projection solver {NS}^3: rel err "
+                             f"{res['ns_rel']}, max|div| / max|u| "
+                             f"{res['ns_div']}")
+    del u0, un, fns
+
+    tg = ct.models.TaylorGreenSolver(grid=grid, nu=1.0 / 1600.0,
+                                     split_complex=True)
+    uh, ftg = tg.setup(torch.float32)
+    ref = tg_reference()
+    devs = {}
+    t0 = time.perf_counter()
+    for i in range(TG_STEPS + 1):
+        if i % 50 == 0:
+            k = i // 50
+            e, d = float(tg.energy(uh, ftg)), float(tg.dissipation(uh, ftg))
+            devs[round(0.1 * k, 1)] = (abs(e - ref[k][0]) / ref[k][0],
+                                       abs(d - ref[k][1]) / ref[k][1])
+        if i < TG_STEPS:
+            uh = tg.step(uh, ftg, TG_DT)
+    torch.cuda.synchronize()
+    res["tg_s"] = time.perf_counter() - t0
+    res["tg_devs"] = devs
+    res["tg_worst"] = max(max(v) for v in devs.values())
+    if not all(uh_p.dtype == torch.float32 for uh_p in uh):
+        raise AssertionError("the Taylor-Green state left float32")
+    if not res["tg_worst"] <= TG_RTOL:
+        raise AssertionError(f"Taylor-Green {NS}^3 Re 1600: relative "
+                             f"deviation from the committed curve {devs}")
+    torch.cuda.synchronize()
+    res["launches"] = counts(K, S, D, cb)
+    return res
+
+
+def dft2_timing(torch, D, perf, gen):
+    """Phase 8: K5, dft2_ref and cuFFT's fftn over dims (1, 2) at the r2c
+    spectrum of a 256^3 field, (129, 256, 256) c64; ms per call (means
+    over trials), and the bound of the transform: its bytes, or its
+    5 N log2 N flops as an FFT, whichever takes longer.  The dense DFT's
+    own flop time, which bounds K5 as written, is ``dense_flop_ms``."""
+    shape = (NS // 2 + 1, NS, NS)
+    x = complex_field(torch, shape, gen)
+
+    def t(fn, iters=10):
+        return mean(perf.time_fn(fn, n_warmup=2, n_trials=5,
+                                 iters=iters)) * 1e3
+
+    # plain, kernel, kernel, plain: drift shows as disagreeing pairs
+    runs = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = D.dft2_ref if name == "plain" else D.dft2
+        runs[name].append(t(lambda: fn(x)))
+    out = {k: mean(v) for k, v in runs.items()}
+    out["runs_ms"] = runs
+    out["cufft_ms"] = t(lambda: torch.fft.fftn(x, dim=(1, 2)))
+    X, n1, n2 = shape
+    dense_flops = 8 * X * n1 * n2 * (n1 + n2)
+    fft_flops = 5 * X * n1 * n2 * math.log2(n1 * n2)
+    nbytes = 2 * x.numel() * x.element_size()
+    out["dense_flop_ms"] = dense_flops / FP32_FLOP_PER_S * 1e3
+    out["flop_ms"] = fft_flops / FP32_FLOP_PER_S * 1e3
+    out["byte_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    out["bound_ms"] = max(out["flop_ms"], out["byte_ms"])
+    out["bound_by"] = ("operations" if out["flop_ms"] >= out["byte_ms"]
+                       else "bytes")
+    out["tflops"] = dense_flops / (out["kernel"] * 1e-3) / 1e12
+    out["shape"] = shape
+    return out
+
+
 def probe_timing(torch, K, cb, perf):
     """K0 alone on its (8, 128) float32 tensor, beside clone()."""
     lib = K._lib()
@@ -514,8 +725,12 @@ def main() -> int:
     import cudecomp_tpu_torch as ct
     from cudecomp_tpu_torch import bench, performance as perf
     from cudecomp_tpu_torch.ops import cuda_kernels as K
+    from cudecomp_tpu_torch.ops import dft2 as D
     from cudecomp_tpu_torch.ops import stencil_kernel as S
     from cudecomp_tpu_torch.utils import cuda_build as cb
+    # phases 5 and 6 must run with the K5 knob unset; phase 7 sets it
+    # around its K5 cases only
+    os.environ.pop("CUDECOMP_TPU_FFT_FUSED2", None)
 
     # phase 1: the card
     card = card_line()
@@ -524,12 +739,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
 
-    # phase 2: build K1 and K4 side by side; K0 probes each at load
+    # phase 2: build K1, K4 and K5 side by side; K0 probes each at load
     torch.cuda.init()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (K, S)))
-    print(f"K1 and K4 built and loaded in {time.perf_counter() - t0:.1f} s "
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda m: m.build(), (K, S, D)))
+    print(f"K1, K4 and K5 built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(p.name for p in libs)}); K0 probed them "
           f"({cb.probe_launch_count} launches)")
 
@@ -544,9 +759,14 @@ def main() -> int:
     k4_worst, k4_ratio = stencil_kernel_checks(torch, S, gen)
     print(f"K4 within tolerance of stencil27_ref on every case: max abs "
           f"diff {k4_worst:.3e}, at most {k4_ratio:.3f} of its tolerance")
+    k5 = dft2_kernel_checks(torch, D, gen)
+    print(f"K5 within {K5_EPS} x max|reference| on every case, forward and "
+          f"inverse: max abs diff to dft2_ref {k5['abs']:.3e} "
+          f"({k5['ref']:.3e} of max|dft2_ref|), {k5['c128']:.3e} of "
+          f"max|complex128 cuFFT|")
 
     # phase 5: the FFT path
-    mp = main_path(torch, ct, K, S, cb, bench)
+    mp = main_path(torch, ct, K, S, D, cb, bench)
     print(f"512^3 c64 axis-contiguous pdims (1, 1): forward rel L2 err vs "
           f"torch.fft.fftn {mp['rel_l2']:.3e} (<= {RTOL_FFT}); c2c round "
           f"trip max abs err {mp['c2c_err']:.3e}, r2c {mp['r2c_err']:.3e} "
@@ -555,7 +775,7 @@ def main() -> int:
 
     # phase 6: the halo and stencil path
     torch.cuda.empty_cache()
-    sp = stencil_path(torch, ct, S, K, cb)
+    sp = stencil_path(torch, ct, S, K, D, cb)
     print(f"512^3 f32 pdims (1, 1): update_halos bit-equal to the plain "
           f"buffer (launches {sp['halo_launches']}); diffusion_step rel L2 "
           f"err {sp['diffusion_rel_l2']:.3e} (<= {RTOL_DIFFUSION}), 1 K4 "
@@ -568,8 +788,32 @@ def main() -> int:
     if min(sp["launches"][k] for k in ("K0", "K4")) < 1:
         raise AssertionError(f"the stencil path skipped a kernel: "
                              f"{sp['launches']}")
+    if mp["counts"]["K5"] or sp["launches"]["K5"]:
+        raise AssertionError("K5 ran with CUDECOMP_TPU_FFT_FUSED2 unset")
 
-    # phase 7: timing
+    # phase 7: the spectral path
+    torch.cuda.empty_cache()
+    spec = spectral_path(torch, ct, bench, K, S, D, cb)
+    by_t = ", ".join(f"{t}: E {e:.2e} eps {d:.2e}"
+                     for t, (e, d) in spec["tg_devs"].items())
+    print(f"{NS}^3 f32 pdims (1, 1) spectral path: Poisson solve rel L2 err "
+          f"{spec['poisson_rel']:.3e}, discrete {spec['discrete_rel']:.3e} "
+          f"(<= {RTOL_SPECTRAL}), its plain 7-point Laplacian vs f "
+          f"{spec['lap_rel']:.3e} (<= {LAP_GATE}), knob off vs on "
+          f"{spec['off_rel']:.3e}; K5 launches per solve (on, on, off) "
+          f"{spec['poisson_launches']}; projection solver 2 RK4 steps rel "
+          f"err vs R(z)^n u0 {spec['ns_rel']:.3e}, max|div_h u| / max|u| "
+          f"{spec['ns_div']:.3e}, K5 per step {spec['ns_launches']}; "
+          f"Taylor-Green Re 1600 {TG_STEPS} IF-RK4 steps in "
+          f"{spec['tg_s']:.2f} s, largest relative deviation of energy and "
+          f"dissipation from docs/tg_validation_n256.csv "
+          f"{spec['tg_worst']:.3e} (<= {TG_RTOL}), by t: {by_t}"
+          f"; path launches {spec['launches']}")
+    if min(spec["launches"][k] for k in ("K0", "K5")) < 1:
+        raise AssertionError(f"the spectral path skipped a kernel: "
+                             f"{spec['launches']}")
+
+    # phase 8: timing
     torch.cuda.empty_cache()
     payload = bench.main(N=N, iters=20, n_trials=3, axis_contiguous=True)
     perm_t, clone_ms, nbytes = kernel_timing(torch, K, perf, gen)
@@ -612,6 +856,27 @@ def main() -> int:
     k0_ms, k0_plain, k0_err = probe_timing(torch, K, cb, perf)
     print(f"[{card}] K0 probe copy (8, 128) f32: {k0_ms * 1e3:.2f} us per "
           f"launch; clone() {k0_plain * 1e3:.2f} us")
+    torch.cuda.empty_cache()
+    k5t = dft2_timing(torch, D, perf, gen)
+    print(f"[{card}] K5 dft2 {k5t['shape']} c64: kernel {k5t['kernel']:.3f} "
+          f"ms = {k5t['tflops']:.1f} dense-DFT TFLOP/s, bound "
+          f"{k5t['bound_ms']:.4f} ms by {k5t['bound_by']} (bytes "
+          f"{k5t['byte_ms']:.4f} ms, FFT flops {k5t['flop_ms']:.4f} ms; the "
+          f"dense DFT's flops {k5t['dense_flop_ms']:.3f} ms); dft2_ref "
+          f"{k5t['plain']:.3f} ms (runs "
+          f"{k5t['runs_ms']}); torch.fft.fftn(dim=(1, 2)) "
+          f"{k5t['cufft_ms']:.3f} ms")
+    pois = bench.poisson_headline(N=NS)
+    tgh = bench.tg_headline(N=NS)
+    nsh = bench.ns_headline(N=NS)
+    print(f"[{card}] {NS}^3 f32 spectral Poisson solve (r2c split): K5 on "
+          f"{pois['on_ms']:.3f} ms, off {pois['off_ms']:.3f} ms (runs "
+          f"{pois['runs_ms']})")
+    print(f"[{card}] {NS}^3 f32 Taylor-Green IF-RK4 step: {tgh['value']:.3f}"
+          f" ms (trials {tgh['trials_ms']})")
+    print(f"[{card}] {NS}^3 f32 projection-solver RK4 step: K5 on "
+          f"{nsh['on_ms']:.3f} ms, off {nsh['off_ms']:.3f} ms (runs "
+          f"{nsh['runs_ms']})")
 
     fft_plan = bench.make_plan(N, axis_contiguous=True, device=DEVICE)
     fft_x = bench.make_field(fft_plan.grid, seed=3)
@@ -633,6 +898,20 @@ def main() -> int:
     print_profile(card, f"one {CG_N}^3 f32 CG chunk (64 iterations)",
                   *profile_window(torch, lambda: solver.solve_cg(
                       f, tol=0.0, maxiter=64, check_every=64), reps=2))
+    del solver, f
+    torch.cuda.empty_cache()
+    sgrid = ct.make_grid(ct.GridConfig(gdims=(NS,) * 3, pdims=(1, 1)), DEVICE)
+    tg = ct.models.TaylorGreenSolver(grid=sgrid, nu=1.0 / 1600.0,
+                                     split_complex=True)
+    uh, ftg = tg.setup(torch.float32)
+    print_profile(card, f"one {NS}^3 f32 Taylor-Green IF-RK4 step",
+                  *profile_window(torch, lambda: tg.step(uh, ftg, TG_DT)))
+    del uh, ftg
+    psolver = ct.models.PoissonSolver(grid=sgrid, split_complex=True)
+    f = torch.randn((NS,) * 3, generator=gen, device=DEVICE)
+    with bench.fused2(True):
+        print_profile(card, f"one {NS}^3 f32 Poisson solve with K5",
+                      *profile_window(torch, lambda: psolver.solve(f)))
 
     t120 = perm_t[(1, 2, 0)]
     ms_to_bound = 1e3 / HBM_BYTES_PER_S
@@ -642,7 +921,8 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/probe.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:142",
-         "launches": mp["counts"]["K0"] + sp["launches"]["K0"],
+         "launches": (mp["counts"]["K0"] + sp["launches"]["K0"]
+                      + spec["launches"]["K0"]),
          "max_abs_err": k0_err,
          "ms": k0_ms,
          "plain_ms": k0_plain,
@@ -673,6 +953,17 @@ def main() -> int:
          "bound_by": ("bytes" if nb4 / HBM_BYTES_PER_S
                       >= k4_flops / FP32_FLOP_PER_S else "operations"),
          "library_ms": st["conv_ms"]},
+        {"name": "K5 dft2 (fused 2-axis DFT)",
+         "route": "cuda",
+         "source": "cudecomp_tpu_torch/csrc/dft2.cu",
+         "replaces": "cudecomp_tpu/ops/mxu_fft.py:392",
+         "launches": spec["launches"]["K5"],
+         "max_abs_err": k5["abs"],
+         "ms": k5t["kernel"],
+         "plain_ms": k5t["plain"],
+         "bound_ms": k5t["bound_ms"],
+         "bound_by": k5t["bound_by"],
+         "library_ms": k5t["cufft_ms"]},
     ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -11,12 +11,17 @@ JAX package stays the reference and the tests hold this package to it.
   * the distributed FFT runs ``torch.fft`` (cuFFT) between transposes;
   * halo updates and the stencil path's ghost planes travel by
     ``batch_isend_irecv`` neighbour shifts; the stencils are the K4 CUDA
-    kernel (``ops.stencil_kernel``).
+    kernel (``ops.stencil_kernel``);
+  * the spectral operators and solvers run on the distributed FFT; with
+    ``CUDECOMP_TPU_FFT_FUSED2=1`` a split-complex plan runs the (1, 2)
+    pair of an eligible 3D stage through the K5 CUDA kernel
+    (``ops.dft2``).
 
 Ported so far: config, geometry, grid and mesh, the all-to-all exchange,
 the four transposes, the distributed FFT, the halo engine, the
-ghost-plane stencil path, the CG Poisson solve, ``time_fn`` and the
-benchmark.
+ghost-plane stencil path, the spectral operators, the Poisson (spectral
+and CG), Taylor-Green and projection solvers, checkpoints, ``time_fn``
+and the benchmark.
 """
 
 from cudecomp_tpu_torch.config import (
@@ -40,6 +45,8 @@ from cudecomp_tpu_torch.grid import (GridDescriptor, clear_plan_caches,
                                      finalize, init, make_grid)
 from cudecomp_tpu_torch.ops.fft import DistributedFFT, fft3d, ifft3d
 from cudecomp_tpu_torch.ops.halo import update_halos
+from cudecomp_tpu_torch.ops.spectral import (SpectralOperators, dealias_mask,
+                                             wavenumber_fields)
 from cudecomp_tpu_torch.ops.stencil import (diffusion_step, halo_map,
                                             laplacian7, stencil_apply)
 from cudecomp_tpu_torch import models
@@ -49,6 +56,7 @@ from cudecomp_tpu_torch.ops.transpose import (
     transpose_y_to_z,
     transpose_z_to_y,
 )
+from cudecomp_tpu_torch.utils import checkpoint
 from cudecomp_tpu_torch.utils.arrays import (gather_global, scatter_global,
                                              valid_interior_mask)
 
@@ -86,6 +94,10 @@ __all__ = [
     "DistributedFFT",
     "fft3d",
     "ifft3d",
+    "SpectralOperators",
+    "wavenumber_fields",
+    "dealias_mask",
+    "checkpoint",
     "scatter_global",
     "gather_global",
     "valid_interior_mask",

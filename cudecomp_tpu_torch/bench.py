@@ -21,22 +21,30 @@ Beside the FFT, the halo and stencil path's three headlines, each one
 JSON dict, mirroring the JAX bench table (``bench_full.py:265-342``):
 :func:`stencil_headline` (the fused diffusion step, 512^3 f32),
 :func:`halo_headline` (a width-1 periodic halo update, 512^3 f32) and
-:func:`cg_headline` (the CG Poisson solve, 256^3 f32, tol 1e-5).  Data
-comes from a seeded generator on the card; times are CUDA-event times over
-the whole timed window.
+:func:`cg_headline` (the CG Poisson solve, 256^3 f32, tol 1e-5); and the
+spectral path's three: :func:`poisson_headline` (the r2c split-complex
+spectral Poisson solve, 256^3 f32, with K5 on and off),
+:func:`tg_headline` (one Taylor-Green IF-RK4 step, 256^3 f32) and
+:func:`ns_headline` (one RK4 step of the projection solver, 256^3 f32,
+with K5 on and off).  Data comes from a seeded generator on the card;
+times are CUDA-event times over the whole timed window.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import sys
 
 import torch
 
 from cudecomp_tpu_torch.config import GridConfig
 from cudecomp_tpu_torch.grid import make_grid
+from cudecomp_tpu_torch.models.incompressible import ProjectionSolver
 from cudecomp_tpu_torch.models.poisson import PoissonSolver
+from cudecomp_tpu_torch.models.taylor_green import TaylorGreenSolver
 from cudecomp_tpu_torch.ops.fft import DistributedFFT
 from cudecomp_tpu_torch.ops.halo import update_halos
 from cudecomp_tpu_torch.ops.stencil import diffusion_step
@@ -205,6 +213,81 @@ def cg_headline(N: int = 256, tol: float = 1e-5,
             "ms_per_iter": t * 1e3 / max(int(iters), 1),
             "device": torch.cuda.get_device_name(0)}
 
+
+
+@contextlib.contextmanager
+def fused2(on: bool):
+    """``CUDECOMP_TPU_FFT_FUSED2`` set to ``on`` inside the block, and
+    restored after."""
+    name = "CUDECOMP_TPU_FFT_FUSED2"
+    old = os.environ.get(name)
+    os.environ[name] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def _on_off(fn, iters: int, n_trials: int) -> dict:
+    """ms per call of ``fn`` with K5 off and on, in the order off, on,
+    on, off (drift shows as disagreeing pairs); the mean per side."""
+    runs = {"off": [], "on": []}
+    for side in ("off", "on", "on", "off"):
+        with fused2(side == "on"):
+            times = time_fn(fn, n_warmup=1, n_trials=n_trials, iters=iters)
+        runs[side].append(sum(times) / len(times) * 1e3)
+    return {"on_ms": sum(runs["on"]) / 2, "off_ms": sum(runs["off"]) / 2,
+            "runs_ms": runs}
+
+
+def poisson_headline(N: int = 256, iters: int = 10, n_trials: int = 3
+                     ) -> dict:
+    """ms per r2c split-complex spectral Poisson solve of an N^3 f32
+    field, with K5 off (``value``, the default path) and on."""
+    _need_cuda()
+    solver = PoissonSolver(grid=_cube_grid(N), split_complex=True)
+    f = make_field(solver.grid, seed=5, dtype=torch.float32)
+    t = _on_off(lambda: solver.solve(f), iters, n_trials)
+    return {"metric": f"{N}^3 f32 spectral Poisson solve (r2c, "
+                      f"split-complex, pdims (1, 1))",
+            "value": t["off_ms"], "unit": "ms", **t,
+            "device": torch.cuda.get_device_name(0)}
+
+
+def tg_headline(N: int = 256, iters: int = 3, n_trials: int = 3,
+                dt: float = 2e-3) -> dict:
+    """ms per Taylor-Green IF-RK4 step at N^3, f32 split-complex state,
+    Re 1600 (K5 never runs there: the state has a component dim)."""
+    _need_cuda()
+    solver = TaylorGreenSolver(grid=_cube_grid(N), nu=1.0 / 1600.0,
+                               split_complex=True)
+    uh, f = solver.setup(torch.float32)
+    times = time_fn(lambda: solver.step(uh, f, dt), n_warmup=1,
+                    n_trials=n_trials, iters=iters)
+    t = sum(times) / len(times)
+    return {"metric": f"{N}^3 f32 Taylor-Green IF-RK4 step (split-complex, "
+                      f"Re 1600, pdims (1, 1))",
+            "value": t * 1e3, "unit": "ms",
+            "trials_ms": [s * 1e3 for s in times],
+            "device": torch.cuda.get_device_name(0)}
+
+
+def ns_headline(N: int = 256, iters: int = 3, n_trials: int = 3,
+                dt: float = 1e-2) -> dict:
+    """ms per RK4 step of the projection solver on the extruded
+    Taylor-Green field at N^3 f32 (split-complex pressure FFTs), with K5
+    off (``value``, the default path) and on."""
+    _need_cuda()
+    solver = ProjectionSolver(grid=_cube_grid(N), split_complex=True)
+    u, f = solver.setup_tg(torch.float32)
+    t = _on_off(lambda: solver.step(u, f, dt), iters, n_trials)
+    return {"metric": f"{N}^3 f32 projection-solver RK4 step (split-complex "
+                      f"pressure, pdims (1, 1))",
+            "value": t["off_ms"], "unit": "ms", **t,
+            "device": torch.cuda.get_device_name(0)}
 
 if __name__ == "__main__":
     kw = {}

@@ -1,11 +1,15 @@
 """Poisson solver on the pencil decomposition (``cudecomp_tpu.models.
-poisson``).
+poisson``), the analog of the reference's ``examples/fortran/poisson/
+poisson.f90``.
 
-:meth:`PoissonSolver.solve_cg` is the matrix-free conjugate-gradient solve
-of the discrete 7-point Poisson equation, whose matvec is one K4 stencil
-pass.  The spectral solve (``solve``, ``jitted`` and the spectral inverse
-symbols) needs ``ops/spectral.py``, which the port does not have yet: they
-raise ``NotImplementedError``.
+:meth:`PoissonSolver.solve` solves ``lap(u) = f`` (periodic) by a forward
+FFT, a multiply by ``-1/|k|^2`` (zero mode pinned to 0), or by the inverse
+symbol of the discrete 7-point Laplacian, and an inverse FFT.  The scale
+field is built once per solver in float64 (with the r2c halving and the
+padded Z-pencil layout) and cast once per state dtype, so a complex64
+spectrum stays complex64.  :meth:`PoissonSolver.solve_cg` is the
+matrix-free conjugate-gradient solve of the discrete equation, whose
+matvec is one K4 stencil pass.
 """
 
 from __future__ import annotations
@@ -17,32 +21,107 @@ import numpy as np
 import torch
 
 from cudecomp_tpu_torch.grid import GridDescriptor
+from cudecomp_tpu_torch.ops.fft import DistributedFFT
 from cudecomp_tpu_torch.parallel.collectives import all_reduce_grid
 from cudecomp_tpu_torch.utils.tracing import trace_range
-
-_SPECTRAL = ("the spectral Poisson solve needs ops/spectral.py, the next "
-             "slice of the cudecomp_tpu_torch port (ROADMAP Queue 1, item "
-             "9); use solve_cg")
 
 
 @dataclasses.dataclass(frozen=True)
 class PoissonSolver:
-    """Periodic Poisson solver for ``lap(u) = f`` with zero mean."""
+    """Periodic Poisson solver: ``solve(f)`` returns u with ``lap(u) = f``
+    and zero mean.  Works in complex (default) or split-complex mode; with
+    ``real=True`` (the default) ``f`` is a real X-pencil tensor."""
 
     grid: GridDescriptor
     lengths: Tuple[float, float, float] = (2 * np.pi, 2 * np.pi, 2 * np.pi)
+    real: bool = True
+    split_complex: bool = False
+    # init=False: dataclasses.replace() must not carry a populated cache
+    # into a solver with other parameters
+    _cache: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False, init=False)
+
+    @property
+    def plan(self) -> DistributedFFT:
+        return DistributedFFT(grid=self.grid, real=self.real,
+                              split_complex=self.split_complex)
+
+    def _sops(self):
+        from cudecomp_tpu_torch.ops.spectral import SpectralOperators
+        return SpectralOperators(plan=self.plan, lengths=self.lengths,
+                                 dtype=np.float64)
 
     def _inv_k2(self):
-        raise NotImplementedError(_SPECTRAL)
+        """``-1/|k|^2`` (zero mode 0) over this rank's spectral block,
+        float64: ``solve`` divides by ``-|k|^2``."""
+        cached = self._cache.get("inv_k2")
+        if cached is None:
+            cached = -self._sops().inv_k_squared()
+            self._cache["inv_k2"] = cached
+        return cached
 
     def _inv_symbol_fd(self):
-        raise NotImplementedError(_SPECTRAL)
+        """Inverse symbol of the DISCRETE 7-point Laplacian: the DFT
+        diagonalizes ``lap_h`` with per-axis eigenvalues
+        ``-(4/h_d^2) sin^2(k_d h_d / 2)`` (zero mode pinned), so one FFT
+        pair solves the FD system exactly (what ``solve_cg`` iterates
+        toward).  float64."""
+        cached = self._cache.get("inv_fd")
+        if cached is None:
+            sym = None
+            for k, n, L in zip(self._sops().wavenumbers(),
+                               self.grid.config.gdims, self.lengths):
+                h = L / n
+                term = (4.0 / (h * h)) * torch.sin(k * h / 2.0) ** 2
+                sym = term if sym is None else sym + term
+            cached = torch.where(sym > 0,
+                                 -1.0 / torch.where(sym > 0, sym, 1.0), 0.0)
+            self._cache["inv_fd"] = cached
+        return cached
+
+    def _scale(self, discrete: bool, dtype: torch.dtype) -> torch.Tensor:
+        """The spectral scale in ``dtype`` (cast once, then cached)."""
+        key = ("scale", bool(discrete), dtype)
+        cached = self._cache.get(key)
+        if cached is None:
+            field = self._inv_symbol_fd() if discrete else self._inv_k2()
+            cached = field.to(dtype)
+            self._cache[key] = cached
+        return cached
+
+    def _solve_with(self, plan, f, discrete: bool):
+        if self.split_complex and self.real:
+            # plane-carried: the scale applies per plane
+            rh, ih = plan.forward_planes(f)
+            s = self._scale(discrete, rh.dtype)
+            return plan.inverse_planes((rh * s, ih * s))
+        fh = plan.forward(f)
+        if self.split_complex:
+            return plan.inverse(fh * self._scale(discrete, fh.dtype)[..., None])
+        return plan.inverse(fh * self._scale(discrete, fh.real.dtype))
 
     def solve(self, f, discrete: bool = False):
-        raise NotImplementedError(_SPECTRAL)
+        """``f``: this rank's X-pencil tensor on ``grid`` (real if
+        ``real=True``; complex, or float with a trailing (re, im) dim of 2
+        when ``split_complex``, if not).
+
+        With ``discrete=True`` the scale is the inverse symbol of the
+        discrete 7-point Laplacian instead of ``-1/|k|^2``: the result
+        solves ``lap_h(u) = f`` exactly in one FFT pair."""
+        with trace_range("cudecomp_tpu_torch.poisson_solve"):
+            return self._solve_with(self.plan, f, discrete)
 
     def jitted(self):
-        raise NotImplementedError(_SPECTRAL)
+        """A solve function with the plan and the continuous scale built
+        in (PyTorch runs eagerly: a plain closure, for parity with the JAX
+        package's jitted solve)."""
+        plan = self.plan
+        self._inv_k2()
+
+        def solve(f):
+            return self._solve_with(plan, f, False)
+
+        return solve
 
     def _sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the whole grid: a local sum, then the ranks' sum."""

@@ -14,6 +14,9 @@ stages fuse into one multi-axis local FFT and the transpose is skipped.
 The local FFTs are ``torch.fft`` (cuFFT on the GPU, as the reference
 benchmark uses).  R2C/C2R uses the twin complex grid of the benchmark
 (``benchmark.cu:238-252``): X extent ``X//2 + 1``, same Y/Z decomposition.
+With ``CUDECOMP_TPU_FFT_FUSED2=1`` a ``split_complex`` plan runs the dims
+(1, 2) of an eligible 3D stage through K5, the fused 2-axis DFT
+(``ops/dft2.py``), where the JAX package runs its Pallas ``dft2_fused``.
 
 Layouts: ``split_complex=False`` takes and returns complex tensors;
 ``split_complex=True`` takes and returns float tensors with a trailing dim
@@ -32,6 +35,7 @@ import torch
 from cudecomp_tpu_torch.config import GridConfig
 from cudecomp_tpu_torch.grid import GridDescriptor
 from cudecomp_tpu_torch.ops import transpose as tr
+from cudecomp_tpu_torch.ops.dft2 import dft2, dft2_eligible
 from cudecomp_tpu_torch.utils.tracing import trace_range
 
 
@@ -127,8 +131,16 @@ class DistributedFFT:
 
     # -- execution on complex tensors -----------------------------------------
 
-    @staticmethod
-    def _fftn(x, dims, inverse):
+    def _fftn(self, x, dims, inverse):
+        """FFT over ``dims``.  A ``split_complex`` plan runs dims (1, 2) of
+        a 3D stage through K5 first when :func:`~cudecomp_tpu_torch.ops.
+        dft2.dft2_eligible` holds, then the remaining dims, as JAX's
+        ``fft_planes`` does (``mxu_fft.py:488-492``)."""
+        if self.split_complex and {1, 2} <= set(dims) and dft2_eligible(x):
+            x = dft2(x.contiguous(), inverse)
+            dims = tuple(d for d in dims if d not in (1, 2))
+            if not dims:
+                return x
         return (torch.fft.ifftn if inverse else torch.fft.fftn)(x, dim=dims)
 
     def _forward_complex(self, x):

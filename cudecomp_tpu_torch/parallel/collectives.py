@@ -21,7 +21,7 @@ Beside the transposes' exchanges:
     one mesh dim, as ``batch_isend_irecv`` point-to-point pairs.  The halo
     engine and the stencil path's ghost exchanges use it, with the pairs of
     ``neighbour_pairs``.
-  * ``all_reduce_grid`` — a sum over every rank of a grid.
+  * ``all_reduce_grid`` — a sum (or a max) over every rank of a grid.
 """
 
 from __future__ import annotations
@@ -82,16 +82,17 @@ def neighbour_pairs(P: int, periodic: bool):
     return up, down
 
 
-def all_reduce_grid(t: torch.Tensor, grid) -> torch.Tensor:
-    """Sum ``t`` in place over every rank of ``grid`` (one ``all_reduce``
-    per mesh dim of more than one rank; none on a ``(1, 1)`` grid) and
-    return it."""
+def all_reduce_grid(t: torch.Tensor, grid, op=dist.ReduceOp.SUM
+                    ) -> torch.Tensor:
+    """Reduce ``t`` in place over every rank of ``grid`` with ``op`` (the
+    sum by default; one ``all_reduce`` per mesh dim of more than one rank,
+    none on a ``(1, 1)`` grid) and return it."""
     if grid.mesh is None:
         return t
     names = grid.mesh.mesh_dim_names
     for name, p in zip(grid.axis_names, grid.pdims):
         if p > 1 and name in names:
-            dist.all_reduce(t, group=grid.group(name))
+            dist.all_reduce(t, op=op, group=grid.group(name))
     return t
 
 

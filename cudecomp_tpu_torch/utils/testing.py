@@ -161,8 +161,33 @@ def _run_cg_case(case, rank_world):
     check("u", u, 1e-9)
 
 
+def _run_spectral_case(case, rank_world):
+    """The spectral path on sharded state, to 1e-10 of JAX: the spectral
+    Poisson solve, one Taylor-Green step and its shell spectrum (summed
+    over the ranks); the stepped state is then saved as a checkpoint into
+    ``case["ckpt"]`` for the parent to load."""
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch.utils import checkpoint
+    grid = ct.make_grid(ct.GridConfig.from_dict(case["config"]), "cpu")
+    check = _checker(case, grid, rank_world)
+    f = ct.scatter_global(grid, torch.from_numpy(case["field"]), 0)
+    check("poisson", ct.models.PoissonSolver(grid=grid).solve(f), 1e-10)
+    tg = ct.models.TaylorGreenSolver(grid=grid, nu=case["nu"])
+    uh, fields = tg.setup()
+    uh = tg.step(uh, fields, case["dt"])
+    check("tg", uh, 1e-10)
+    spec = tg.spectrum(uh, fields)
+    want = torch.from_numpy(case["spectrum"])
+    if spec.shape != want.shape or not torch.allclose(spec, want, rtol=0,
+                                                      atol=1e-12):
+        raise AssertionError(f"{case['name']} spectrum rank {rank_world}: "
+                             f"differs from JAX's")
+    checkpoint.save_pencil(case["ckpt"], fields["plan"].complex_grid, uh, 2)
+
+
 _KINDS = {"transpose": _run_case, "halo": _run_halo_case,
-          "stencil": _run_stencil_case, "cg": _run_cg_case}
+          "stencil": _run_stencil_case, "cg": _run_cg_case,
+          "spectral": _run_spectral_case}
 
 
 def _expect_error(case):
@@ -192,9 +217,12 @@ def multirank_worker(rank: int, world: int, init_file: str, cases) -> None:
     FFTs of ``field`` and ``cfield``), ``halo`` (``update_halos`` of
     ``field`` with ``axis``, ``halo_extents`` and ``periods``), ``stencil``
     (the ghost-plane path of ``field`` with ``weights`` and ``periods``,
-    and the gradient against ``cotangent``) or ``cg`` (``solve_cg`` of
+    and the gradient against ``cotangent``), ``cg`` (``solve_cg`` of
     ``field`` with ``tol`` and ``check_every``, taking ``iters``
-    iterations).  A case with ``expect_error`` instead checks that its op
+    iterations) or ``spectral`` (the spectral Poisson solve of ``field``,
+    a Taylor-Green step of ``dt`` at viscosity ``nu`` with its
+    ``spectrum``, and a checkpoint of the state into ``ckpt``).  A case
+    with ``expect_error`` instead checks that its op
     (the X->Y transpose, or ``laplacian7`` on pencil ``axis`` for a stencil
     case) raises ValueError with that text.
     """

@@ -1,5 +1,7 @@
 """The CUDA kernels of cudecomp_tpu_torch: K1 (the local permute), K4 (the
-27-point stencil) and K0 (the probe every library runs at load).
+27-point stencil), K5 (the fused 2-axis DFT, whose plain version is held
+to JAX in ``test_torch_dft2.py``) and K0 (the probe every library runs at
+load).
 
 On the CPU the wrappers run their plain twins, which must be bit-equal to
 the JAX package's Pallas kernels run in interpret mode (K4's plain version
@@ -504,3 +506,56 @@ def test_gpu_stencil_path_launches_k4_once(cuda, periods):
     assert S.launch_count == before + 2
     want = ct.stencil_apply(cpu, g, w[::-1, ::-1, ::-1], 0, periods)
     torch.testing.assert_close(grad.cpu(), want, rtol=0, atol=1e-12)
+
+
+# -- K5 on the card ------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gpu_dft2_matches_ref(cuda, inverse):
+    from cudecomp_tpu_torch.ops import dft2 as D
+    for shape in ((16, 8, 128), (3, 8, 128), (5, 24, 256), (2, 256, 256),
+                  (4, 7, 33), (1, 400, 64)):  # 400: a tile over 48 KB
+        x = _cuda_field(shape, torch.complex64, cuda)
+        before = D.launch_count
+        got = D.dft2(x, inverse)
+        torch.cuda.synchronize()
+        assert D.launch_count == before + 1
+        want = D.dft2_ref(x, inverse)
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (shape, err)
+
+
+@pytest.mark.gpu
+def test_gpu_dft2_rejects_what_it_cannot_take(cuda):
+    from cudecomp_tpu_torch.ops import dft2 as D
+    with pytest.raises(ValueError, match="complex64"):
+        D.dft2(torch.zeros(2, 8, 128, device=cuda, dtype=torch.complex128))
+    with pytest.raises(ValueError, match="contiguous"):
+        D.dft2(torch.zeros(2, 128, 8, device=cuda,
+                           dtype=torch.complex64).transpose(1, 2))
+    # the C entry refuses these; the wrapper raises with its error
+    before = D.launch_count
+    for shape in ((2, 8, 512), (1, 2048, 128)):  # N2 > 256; tile > 227 KB
+        with pytest.raises(RuntimeError, match="N2 <= 256"):
+            D.dft2(torch.zeros(shape, device=cuda, dtype=torch.complex64))
+    assert D.launch_count == before
+
+
+@pytest.mark.gpu
+def test_gpu_spectral_poisson_launches_k5_twice(cuda, monkeypatch):
+    # the knob on: a split-complex r2c solve on a CUDA grid launches K5 for
+    # the forward and the inverse, and gives the CPU's numbers
+    from cudecomp_tpu_torch.ops import dft2 as D
+    monkeypatch.setenv("CUDECOMP_TPU_FFT_FUSED2", "1")
+    cfg = ct.GridConfig(gdims=(16, 8, 128), pdims=(1, 1))
+    cpu, gpu = ct.make_grid(cfg, "cpu"), ct.make_grid(cfg, cuda)
+    f = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        cfg.gdims).astype(np.float32))
+    before = D.launch_count
+    got = ct.models.PoissonSolver(grid=gpu, split_complex=True).solve(
+        f.to(cuda))
+    assert D.launch_count == before + 2
+    want = ct.models.PoissonSolver(grid=cpu, split_complex=True).solve(f)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())

@@ -1,7 +1,8 @@
 """``PoissonSolver.solve_cg`` of cudecomp_tpu_torch against the JAX
 package's on the same rhs: the same iteration count, solutions within
 1e-9 (float64).  One rank here; the 4-rank cases, which sum the dot
-products over the ranks, run in ``test_torch_slice.py``."""
+products over the ranks, run in ``test_torch_slice.py``.  The spectral
+solve is held to JAX in ``test_torch_models.py``."""
 
 import jax
 import numpy as np
@@ -76,11 +77,3 @@ def test_maxiter_and_a_zero_rhs():
                                 check_every=4)
     assert iters == 4 and rel == 0.0 and not bool(u.any())
 
-
-def test_spectral_solve_waits_for_the_spectral_slice():
-    _, ts = solvers((8, 8, 8))
-    f = torch.zeros((8, 8, 8))
-    for call in (lambda: ts.solve(f), lambda: ts.solve(f, discrete=True),
-                 ts.jitted, ts._inv_k2, ts._inv_symbol_fd):
-        with pytest.raises(NotImplementedError, match="ops/spectral.py"):
-            call()

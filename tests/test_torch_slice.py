@@ -81,7 +81,10 @@ def test_port_never_imports_jax():
             "cudecomp_tpu_torch.ops.cuda_kernels, "
             "cudecomp_tpu_torch.ops.stencil_kernel, "
             "cudecomp_tpu_torch.ops.halo, cudecomp_tpu_torch.ops.stencil, "
-            "cudecomp_tpu_torch.models, "
+            "cudecomp_tpu_torch.ops.dft2, cudecomp_tpu_torch.ops.spectral, "
+            "cudecomp_tpu_torch.models, cudecomp_tpu_torch.utils.checkpoint, "
+            "cudecomp_tpu_torch.models.taylor_green, "
+            "cudecomp_tpu_torch.models.incompressible, "
             "cudecomp_tpu_torch.utils.cuda_build, "
             "cudecomp_tpu_torch.utils.testing, cudecomp_tpu_torch.utils.env\n"
             "bad = [m for m in sys.modules if m == 'jax' "
