@@ -6,9 +6,10 @@ that the port builds, is right and starts on the card.
 
 Phases, each of which raises on failure (nothing is caught):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the K1 local-permute, K4 stencil and K5 fused 2-axis DFT
-     kernels from the checkout's sources, in parallel; K0, the probe, runs
-     once as each library loads;
+  2. build the K1 local-permute, K4 stencil, K5 fused 2-axis DFT
+     libraries and the one library of the K2 one-sided all-to-all and the
+     K3 one-sided halo ring from the checkout's sources, in parallel; K0,
+     the probe, runs once as each library loads;
   3. K1 against its plain twin, bit for bit: bf16/f32/f64/c64/c128, both
      cyclic perms, ragged and degenerate shapes, and the 512^3 c64 shapes
      of the FFT path;
@@ -52,11 +53,28 @@ Phases, each of which raises on failure (nothing is caught):
      256); the Poisson solve with K5 on and off, the Taylor-Green step and
      the projection-solver step; torch.profiler breakdowns by kernel, with
      the card's idle share, of one FFT round trip, one diffusion step, one
-     CG chunk, one Taylor-Green step and one K5 Poisson solve.
+     CG chunk, one Taylor-Green step and one K5 Poisson solve;
+  9. the one-sided exchange path: K2s (a2a_smoke, K2's single-rank program
+     and K1) bit-equal on a one-rank gloo group in this process; then four
+     ranks in four processes sharing the card (gloo over file://, every
+     rank on cuda:0): K2 over each mesh dim on a rank's 512^3/4 c64 pencil
+     (the path's size) bit-equal to its plain executor on the card; the
+     512^3 c64 axis-contiguous PALLAS_A2A round trip
+     at pdims (2, 2), each rank holding its shard to its slice of the
+     complex128 torch.fft.fftn of the global field (forward rel L2 <= 1e-5
+     over all ranks, round trip max abs < 5e-4,
+     exactly 4 K2 launches per rank and no all_to_all_single), two
+     HaloMethod.PALLAS updates of the 512^3 f32 x-pencil at width 1,
+     periodic and not, bit-equal to the plain wrapped-index buffer with 2
+     K3 launches each; K2 and K3 on a 66 x 70 x 74 grid at pdims (1, 4) and
+     (4, 1) bit-equal to their plain versions over gloo on CPU copies; the
+     ranks' times of K2, the round trip, K3 and the update, and, in this
+     process, the plain executor's times on the card for the same data.
 
-Before each path (5, 6 and 7) every launch count is set to 0 and the
-loaded libraries are dropped, so the path loads them as a fresh process
-does (and K0 runs inside it); the counts are read just after.  The line
+Before each path (5, 6, 7 and the four ranks of 9) every launch count is
+set to 0 (in 5, 6 and 7 the loaded libraries are dropped too, so the path
+loads them as a fresh process does, and K0 runs inside it; the ranks of 9
+are fresh processes); the counts are read just after.  The line
 before the last is a JSON object describing each kernel; the last line is
 {"ok": true, "device": {...}}.  Exits nonzero, printing neither, when CUDA
 is not available or the package is missing.
@@ -716,6 +734,224 @@ def probe_timing(torch, K, cb, perf):
     return ms, plain, float((y - x).abs().max())
 
 
+# -- K2, K2s, K3: the one-sided exchange path on four ranks sharing the card -----
+
+PEER_RANKS = 4
+PEER_SMALL = (66, 70, 74)   # uneven at P = 4 along every dim
+
+
+def peer_worker(rank, out_dir):
+    """Phase 9, one of the four ranks (a ``card_ranks_worker`` body: gloo
+    over ``file://``, every rank on cuda:0).  K2 at the main path's shapes
+    against its plain version; the main path (the c64 PALLAS_A2A round trip
+    and two HaloMethod.PALLAS updates at pdims (2, 2)) between a reset and a
+    read of the counts; then the small uneven checks at P = 4 and the
+    timing.  Writes ``rank<r>.json`` to ``out_dir``; raises on any failed
+    check."""
+    import torch
+    import torch.distributed as dist
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch import bench
+    from cudecomp_tpu_torch.ops import cuda_kernels as K
+    from cudecomp_tpu_torch.ops import peer_kernels as PK
+    from cudecomp_tpu_torch.utils import cuda_build as cb
+    from cudecomp_tpu_torch.utils import testing
+
+    fgrid, hgrid = bench.peer_grids(N, DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    xg = torch.view_as_complex(torch.randn((N, N, N, 2), generator=gen,
+                                           device=DEVICE))
+    x = ct.scatter_global(fgrid, xg, 0)
+    # the reference in complex128, so that the error is the port's own
+    ref = ct.scatter_global(fgrid, torch.fft.fftn(xg.to(torch.complex128)),
+                            2)
+    # K2 over each mesh dim at the path's size (a rank's 512^3/4 c64
+    # pencil in P blocks) against the plain executor on the card: every
+    # member's blocks are its world rank's quarter of the global field
+    k2_err = 0.0
+    flat = xg.view(-1)
+    local = flat.numel() // dist.get_world_size()
+    for name in fgrid.axis_names:
+        group = fgrid.group(name)
+        members = dist.get_process_group_ranks(group)
+        me = dist.get_rank(group)
+        srcs = [flat[w * local:(w + 1) * local].view(x.shape)
+                for w in members]
+        plans = [PK.a2a_plan(len(members), r,
+                             local * xg.element_size() // len(members))
+                 for r in range(len(members))]
+        want = PK.apply_plans(plans, srcs,
+                              [torch.empty_like(b) for b in srcs])[me]
+        got = PK.a2a(srcs[me], group)
+        k2_err = max(k2_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"rank {rank}: K2 over {name} at "
+                                 f"{tuple(x.shape)} c64 differs from its "
+                                 f"plain version by {k2_err}")
+        del srcs, want, got
+    del xg, flat
+    hg = torch.randn((N, N, N), generator=gen, device=DEVICE)
+    he = (1, 1, 1)
+    bufs = {p: ct.scatter_global(hgrid, hg, 0, halo_extents=he)
+            for p in ((True, True, True), (False, False, False))}
+    torch.cuda.empty_cache()
+    plan = ct.DistributedFFT(grid=fgrid)
+    a2a_single = []
+    real_a2a = dist.all_to_all_single
+
+    def spy(*a, **k):
+        a2a_single.append(1)
+        return real_a2a(*a, **k)
+
+    dist.all_to_all_single = spy
+    PK.reset_launch_counts()
+    K.reset_launch_count()
+    cb.reset_probe_count()
+    xh = plan.forward(x)
+    back = plan.inverse(xh)
+    torch.cuda.synchronize()
+    fft_k2 = PK.a2a_launch_count
+    halo_k3 = []
+    for periods, buf in bufs.items():
+        n0 = PK.halo_launch_count
+        if ct.update_halos(hgrid, buf, 0, he, periods) is not buf:
+            raise AssertionError("update_halos returned a new tensor")
+        halo_k3.append(PK.halo_launch_count - n0)
+    torch.cuda.synchronize()
+    counts = {"K0": cb.probe_launch_count, "K1": K.launch_count,
+              "K2": PK.a2a_launch_count, "K3": PK.halo_launch_count,
+              "all_to_all_single": len(a2a_single)}
+    dist.all_to_all_single = real_a2a
+
+    # checks, on CPU scalars summed over the ranks
+    sums = torch.tensor([
+        float(torch.linalg.vector_norm(xh.to(ref.dtype) - ref) ** 2),
+        float(torch.linalg.vector_norm(ref) ** 2)], dtype=torch.float64)
+    dist.all_reduce(sums)
+    err = torch.tensor([float((back - x).abs().max())])
+    dist.all_reduce(err, op=dist.ReduceOp.MAX)
+    res = {"rel_l2": math.sqrt(float(sums[0]) / float(sums[1])),
+           "roundtrip_err": float(err[0]), "counts": counts,
+           "fft_k2": fft_k2, "halo_k3": halo_k3, "halo_err": 0.0,
+           "k2_err": k2_err}
+    del x, ref, xh, back, plan
+    if fft_k2 != 4 or counts["all_to_all_single"]:
+        raise AssertionError(f"rank {rank}: the round trip launched K2 "
+                             f"{fft_k2} times (expected 4) and called "
+                             f"all_to_all_single {len(a2a_single)} times")
+    if not (res["rel_l2"] <= RTOL_FFT and res["roundtrip_err"] < GATE):
+        raise AssertionError(f"PALLAS_A2A FFT: forward rel L2 "
+                             f"{res['rel_l2']}, round trip max abs err "
+                             f"{res['roundtrip_err']}")
+    if halo_k3 != [2, 2]:
+        raise AssertionError(f"rank {rank}: halo updates launched K3 "
+                             f"{halo_k3} times, expected [2, 2]")
+    for periods, buf in bufs.items():
+        want = testing.expected_halo_buffer(hgrid, hg, 0, he, periods)
+        res["halo_err"] = max(res["halo_err"],
+                              float((buf - want).abs().max()))
+        if not torch.equal(buf, want):
+            raise AssertionError(f"rank {rank}: HaloMethod.PALLAS update "
+                                 f"{periods} differs from the plain "
+                                 f"wrapped-index buffer")
+    del bufs, hg, want
+    torch.cuda.empty_cache()
+
+    res["small"] = testing.check_peer_kernels(torch.device(DEVICE),
+                                              PEER_SMALL, seed=3)
+    res["times"] = bench.peer_rank_times(N, 1, device=DEVICE)
+    if rank == 0:
+        res["mps"] = bench.mps_active()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def peer_phase(torch, perf):
+    """Phase 9: K2s in this process on a one-rank gloo group, then the four
+    ranks, then the plain versions' times on the card in this process."""
+    import tempfile
+    import torch.distributed as dist
+    from cudecomp_tpu_torch import bench
+    from cudecomp_tpu_torch.ops import cuda_kernels as K
+    from cudecomp_tpu_torch.ops import peer_kernels as PK
+    from cudecomp_tpu_torch.parallel import symmetric
+    from cudecomp_tpu_torch.utils.testing import run_card_ranks
+
+    def t(fn, iters=10):
+        return mean(perf.time_fn(fn, n_warmup=2, n_trials=3,
+                                 iters=iters)) * 1e3
+
+    res = {"compute_mode": bench.compute_mode()}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/pg1",
+                                rank=0, world_size=1)
+        PK.reset_launch_counts()
+        K.reset_launch_count()
+        ok = PK.a2a_smoke(1024, device=DEVICE)
+        torch.cuda.synchronize()
+        k2s = {"launches": PK.a2a_launch_count, "k1": K.launch_count}
+        if not ok or (k2s["launches"], k2s["k1"]) != (1, 1):
+            raise AssertionError(f"K2s: bit-equal {ok}, K2 and K1 launches "
+                                 f"{k2s}, expected 1 and 1")
+        x = torch.arange(1024 * 256, dtype=torch.float32,
+                         device=DEVICE).reshape(1024, 256)
+        k2s["err"] = float((PK.a2a(x, None) - x).abs().max())
+        k2s["ms"] = t(lambda: PK.a2a(x, None), 100)
+        out = torch.empty_like(x)
+        plan1 = [PK.a2a_plan(1, 0, x.numel() * 4)]
+        k2s["plain_ms"] = t(lambda: PK.apply_plans(plan1, [x], [out]), 100)
+        k2s["clone_ms"] = t(x.clone, 100)
+        k2s["bytes"] = 2 * x.numel() * 4
+        res["k2s"] = k2s
+        symmetric.release_workspaces()
+        dist.destroy_process_group()
+        del x, out
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        run_card_ranks(peer_worker, PEER_RANKS, f"{tmp}/pg4", (tmp,), 300,
+                       "phase 9's four ranks")
+        res["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(PEER_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    res["ranks"] = ranks
+    res["mps"] = ranks[0]["mps"]
+    res["times"] = bench.merge_ranks([r["times"] for r in ranks])
+
+    # the plain versions on the card, all four ranks' data in this process:
+    # two groups of two along pr, as the timed K2 and K3 calls run
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    local = N ** 3 // PEER_RANKS
+    blocks = [torch.view_as_complex(torch.randn(
+        (local, 2), generator=gen, device=DEVICE)).view(2, -1)
+        for _ in range(PEER_RANKS)]
+    outs = [torch.empty_like(b) for b in blocks]
+    bb = local * 8 // 2
+    plans = [PK.a2a_plan(2, r, bb) for r in range(2)]
+    res["k2_plain_ms"] = t(lambda: [PK.apply_plans(plans, blocks[g::2],
+                                                   outs[g::2])
+                                    for g in range(2)], 3)
+    res["k2_bytes"] = 2 * PEER_RANKS * local * 8
+    del blocks, outs
+    shape = (N + 2, N // 2 + 2, N // 2 + 2)
+    bufs = [torch.randn(shape, generator=gen, device=DEVICE)
+            for _ in range(PEER_RANKS)]
+    hplans = [PK.halo_plan(shape, 4, 1, 1, N // 2, (N // 2,) * 2, r, True)
+              for r in range(2)]
+    res["k3_plain_ms"] = t(lambda: [PK.apply_plans(hplans, bufs[g::2],
+                                                   bufs[g::2])
+                                    for g in range(2)])
+    slab = shape[0] * shape[2] * 4
+    res["k3_bytes"] = PEER_RANKS * 4 * slab
+    del bufs
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -726,6 +962,7 @@ def main() -> int:
     from cudecomp_tpu_torch import bench, performance as perf
     from cudecomp_tpu_torch.ops import cuda_kernels as K
     from cudecomp_tpu_torch.ops import dft2 as D
+    from cudecomp_tpu_torch.ops import peer_kernels as PK
     from cudecomp_tpu_torch.ops import stencil_kernel as S
     from cudecomp_tpu_torch.utils import cuda_build as cb
     # phases 5 and 6 must run with the K5 knob unset; phase 7 sets it
@@ -739,12 +976,15 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
 
-    # phase 2: build K1, K4 and K5 side by side; K0 probes each at load
+    # phase 2: build K1, K4, K5 and the library of K2 and K3 side by side;
+    # K0 probes each at load
     torch.cuda.init()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(lambda m: m.build(), (K, S, D)))
-    print(f"K1, K4 and K5 built and loaded in {time.perf_counter() - t0:.1f} s "
+    builds = (K.build, S.build, D.build, PK.build)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda build: build(), builds))
+    print(f"K1, K4, K5 and K2 with K3 built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s "
           f"({', '.join(p.name for p in libs)}); K0 probed them "
           f"({cb.probe_launch_count} launches)")
 
@@ -912,6 +1152,50 @@ def main() -> int:
     with bench.fused2(True):
         print_profile(card, f"one {NS}^3 f32 Poisson solve with K5",
                       *profile_window(torch, lambda: psolver.solve(f)))
+    del psolver, f, tg, sgrid, grid
+    torch.cuda.empty_cache()
+
+    # phase 9: the one-sided exchange path, four ranks sharing the card
+    peer = peer_phase(torch, perf)
+    k2s, pt, ranks = peer["k2s"], peer["times"], peer["ranks"]
+    path = {k: sum(r["counts"][k] for r in ranks)
+            for k in ("K0", "K1", "K2", "K3", "all_to_all_single")}
+    small = {k: sum(r["small"][k] for r in ranks) for k in ("K2", "K3")}
+    mps = ("MPS on" if peer["mps"] else "no MPS: the four ranks time-slice "
+           "the card")
+    print(f"K2s: a2a_smoke bit-equal on a one-rank gloo group (K2 "
+          f"{k2s['launches']}, K1 {k2s['k1']} launches)")
+    rel = max(r["rel_l2"] for r in ranks)
+    print(f"{PEER_RANKS} ranks on one card over gloo (compute mode "
+          f"{peer['compute_mode']}, {mps}), {peer['ranks_s']:.1f} s: 512^3 "
+          f"c64 PALLAS_A2A round trip at pdims (2, 2): forward rel L2 err vs "
+          f"complex128 torch.fft.fftn {rel:.3e} (<= {RTOL_FFT}), round trip "
+          f"max abs err "
+          f"{max(r['roundtrip_err'] for r in ranks):.3e} (< {GATE}), K2 "
+          f"launches per rank {[r['fft_k2'] for r in ranks]}; 512^3 f32 "
+          f"HaloMethod.PALLAS width 1, periodic and not, bit-equal to the "
+          f"plain wrapped-index buffer, K3 launches per rank and update "
+          f"{[r['halo_k3'] for r in ranks]}; path launches {path}; "
+          f"{PEER_SMALL} at pdims (1, 4) and (4, 1): K2 ({small['K2']} "
+          f"launches) and K3 ({small['K3']}) bit-equal to their plain "
+          f"versions over gloo")
+    if path["K2"] < 1 or path["K3"] < 1 or path["all_to_all_single"]:
+        raise AssertionError(f"the one-sided path skipped a kernel: {path}")
+    print(f"[{card}, {mps}] K2 one exchange of a rank's 512^3 c64 pencil "
+          f"over pr: {pt['k2_ms']:.3f} ms (slowest rank; ranks "
+          f"{pt['ranks_ms']['k2_ms']}); the plain executor on the card, all "
+          f"four ranks' blocks: {peer['k2_plain_ms']:.3f} ms; bound "
+          f"{peer['k2_bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    print(f"[{card}, {mps}] PALLAS_A2A c2c round trip at pdims (2, 2): "
+          f"{pt['fft_ms_per_direction']:.3f} ms per direction (slowest rank)")
+    print(f"[{card}, {mps}] K3 one y-dim update, 512^3 f32 width 1: "
+          f"{pt['k3_ms']:.3f} ms; the plain executor {peer['k3_plain_ms']:.3f}"
+          f" ms; HaloMethod.PALLAS update of every dim {pt['halo_ms']:.3f} ms")
+    print(f"[{card}] K2s (1024, 256) f32: {k2s['ms'] * 1e3:.2f} us; the plain "
+          f"executor {k2s['plain_ms'] * 1e3:.2f} us; clone() "
+          f"{k2s['clone_ms'] * 1e3:.2f} us")
+    print("K2 and K3 library_ms null: no single PyTorch call runs them here, "
+          "since NCCL cannot place four ranks on one card")
 
     t120 = perm_t[(1, 2, 0)]
     ms_to_bound = 1e3 / HBM_BYTES_PER_S
@@ -922,7 +1206,7 @@ def main() -> int:
          "source": "cudecomp_tpu_torch/csrc/probe.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:142",
          "launches": (mp["counts"]["K0"] + sp["launches"]["K0"]
-                      + spec["launches"]["K0"]),
+                      + spec["launches"]["K0"] + path["K0"]),
          "max_abs_err": k0_err,
          "ms": k0_ms,
          "plain_ms": k0_plain,
@@ -964,6 +1248,39 @@ def main() -> int:
          "bound_ms": k5t["bound_ms"],
          "bound_by": k5t["bound_by"],
          "library_ms": k5t["cufft_ms"]},
+        {"name": "K2 peer_a2a (one-sided all-to-all, 4 ranks on one card)",
+         "route": "cuda",
+         "source": "cudecomp_tpu_torch/csrc/peer.cu",
+         "replaces": "cudecomp_tpu/ops/pallas_kernels.py:183",
+         "launches": path["K2"],
+         "max_abs_err": max(r["k2_err"] for r in ranks),
+         "ms": pt["k2_ms"],
+         "plain_ms": peer["k2_plain_ms"],
+         "bound_ms": peer["k2_bytes"] / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "K2s a2a_smoke (K2 at P = 1)",
+         "route": "cuda",
+         "source": "cudecomp_tpu_torch/csrc/peer.cu",
+         "replaces": "cudecomp_tpu/ops/pallas_kernels.py:241",
+         "launches": k2s["launches"],
+         "max_abs_err": k2s["err"],
+         "ms": k2s["ms"],
+         "plain_ms": k2s["plain_ms"],
+         "bound_ms": k2s["bytes"] / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes",
+         "library_ms": k2s["clone_ms"]},
+        {"name": "K3 peer_halo (one-sided halo ring, 4 ranks on one card)",
+         "route": "cuda",
+         "source": "cudecomp_tpu_torch/csrc/peer.cu",
+         "replaces": "cudecomp_tpu/ops/pallas_kernels.py:571",
+         "launches": path["K3"],
+         "max_abs_err": max(r["halo_err"] for r in ranks),
+         "ms": pt["k3_ms"],
+         "plain_ms": peer["k3_plain_ms"],
+         "bound_ms": peer["k3_bytes"] / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes",
+         "library_ms": None},
     ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -6,19 +6,24 @@ JAX package stays the reference and the tests hold this package to it.
   * the process grid is a ``torch.distributed`` DeviceMesh with dims
     ``('pr', 'pc')`` (none for a ``(1, 1)`` grid), and each rank holds its
     own local pencil tensor on an explicit ``torch.device``;
-  * transposes exchange with ``all_to_all_single`` over one mesh dim; the
-    slab path's local permute is the K1 CUDA kernel (``ops.cuda_kernels``);
+  * transposes exchange with ``all_to_all_single`` over one mesh dim, or,
+    with ``TransposeMethod.PALLAS_A2A``, with K2, the one-sided all-to-all
+    CUDA kernel (``ops.peer_kernels``), which puts into torch symmetric
+    memory that every rank of the group maps, so that ranks may share one
+    card over gloo; the slab path's local permute is the K1 CUDA kernel
+    (``ops.cuda_kernels``);
   * the distributed FFT runs ``torch.fft`` (cuFFT) between transposes;
   * halo updates and the stencil path's ghost planes travel by
-    ``batch_isend_irecv`` neighbour shifts; the stencils are the K4 CUDA
-    kernel (``ops.stencil_kernel``);
+    ``batch_isend_irecv`` neighbour shifts, or, with ``HaloMethod.PALLAS``,
+    by K3, the one-sided halo kernel (``ops.peer_kernels``); the stencils
+    are the K4 CUDA kernel (``ops.stencil_kernel``);
   * the spectral operators and solvers run on the distributed FFT; with
     ``CUDECOMP_TPU_FFT_FUSED2=1`` a split-complex plan runs the (1, 2)
     pair of an eligible 3D stage through the K5 CUDA kernel
     (``ops.dft2``).
 
-Ported so far: config, geometry, grid and mesh, the all-to-all exchange,
-the four transposes, the distributed FFT, the halo engine, the
+Ported so far: config, geometry, grid and mesh, the all-to-all and the
+kernel exchanges, the four transposes, the distributed FFT, the halo engine, the
 ghost-plane stencil path, the spectral operators, the Poisson (spectral
 and CG), Taylor-Green and projection solvers, checkpoints, ``time_fn``
 and the benchmark.

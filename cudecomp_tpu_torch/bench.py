@@ -28,6 +28,14 @@ spectral Poisson solve, 256^3 f32, with K5 on and off),
 :func:`ns_headline` (one RK4 step of the projection solver, 256^3 f32,
 with K5 on and off).  Data comes from a seeded generator on the card;
 times are CUDA-event times over the whole timed window.
+
+The one-sided exchange path's headline, :func:`peer_headline`, runs on
+four ranks that share one card (processes over gloo, every rank on
+``cuda:0``): K2 per exchange (512^3 c64, pdims (2, 2)), the
+``PALLAS_A2A`` FFT round trip, K3 per dim and the ``HaloMethod.PALLAS``
+update (512^3 f32, width 1).  Each rank times with CUDA events; a time is
+the slowest rank's.  It says whether MPS was on: without MPS the four
+processes time-slice the card, and every time is that of a shared card.
 """
 
 from __future__ import annotations
@@ -36,11 +44,14 @@ import contextlib
 import json
 import math
 import os
+import subprocess
 import sys
+import tempfile
+from pathlib import Path
 
 import torch
 
-from cudecomp_tpu_torch.config import GridConfig
+from cudecomp_tpu_torch.config import GridConfig, HaloMethod, TransposeMethod
 from cudecomp_tpu_torch.grid import make_grid
 from cudecomp_tpu_torch.models.incompressible import ProjectionSolver
 from cudecomp_tpu_torch.models.poisson import PoissonSolver
@@ -48,6 +59,7 @@ from cudecomp_tpu_torch.models.taylor_green import TaylorGreenSolver
 from cudecomp_tpu_torch.ops.fft import DistributedFFT
 from cudecomp_tpu_torch.ops.halo import update_halos
 from cudecomp_tpu_torch.ops.stencil import diffusion_step
+from cudecomp_tpu_torch.ops import peer_kernels
 from cudecomp_tpu_torch.performance import time_fn
 
 GATE = 5e-4
@@ -288,6 +300,119 @@ def ns_headline(N: int = 256, iters: int = 3, n_trials: int = 3,
                       f"pressure, pdims (1, 1))",
             "value": t["off_ms"], "unit": "ms", **t,
             "device": torch.cuda.get_device_name(0)}
+
+def _smi(query: str, what: str = "--query-gpu") -> str:
+    out = subprocess.run(["nvidia-smi", f"{what}={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip()
+
+
+def compute_mode() -> str:
+    """The card's compute mode (``nvidia-smi``): ``Default`` lets several
+    processes hold a context on it; ``Exclusive_Process`` only one (or an
+    MPS server)."""
+    return _smi("compute_mode").splitlines()[0]
+
+
+def mps_active() -> bool:
+    """Whether an MPS server holds the card (``nvidia-smi`` lists it among
+    the compute processes once a client has connected)."""
+    return "mps" in _smi("process_name", "--query-compute-apps").lower()
+
+
+def peer_grids(N: int = 512, device="cuda"):
+    """The one-sided path's two grids, pdims (2, 2): the axis-contiguous
+    c64 FFT grid with ``PALLAS_A2A`` and the natural-layout halo grid with
+    ``HaloMethod.PALLAS``."""
+    fft_cfg = GridConfig(gdims=(N, N, N), pdims=(2, 2),
+                         transpose_axis_contiguous=(True, True, True),
+                         transpose_method=TransposeMethod.PALLAS_A2A)
+    halo_cfg = GridConfig(gdims=(N, N, N), pdims=(2, 2),
+                          halo_method=HaloMethod.PALLAS)
+    return make_grid(fft_cfg, device), make_grid(halo_cfg, device)
+
+
+def peer_rank_times(N: int = 512, width: int = 1, iters: int = 5,
+                    n_trials: int = 3, device="cuda") -> dict:
+    """In one rank of four that share the card (a gloo world of 4, every
+    rank on its card): ms per K2 exchange of this rank's 512^3 c64 pencil
+    over the ``pr`` group, per ``PALLAS_A2A`` c2c round trip (halved: one
+    direction), per K3 update of the y dim and per ``HaloMethod.PALLAS``
+    update of every dim (512^3 f32, width ``width``, periodic).  Means over
+    trials of CUDA-event times; every rank calls."""
+    import torch.distributed as dist
+    fgrid, hgrid = peer_grids(N, device)
+    dev = fgrid.device
+
+    def t(fn):
+        dist.barrier()
+        times = time_fn(fn, n_warmup=1, n_trials=n_trials, iters=iters)
+        return sum(times) / len(times) * 1e3
+
+    plan = DistributedFFT(grid=fgrid)
+    x = make_field(fgrid, seed=7)
+    pr = fgrid.group(fgrid.axis_names[0])
+    blocks = torch.empty(fgrid.buffer_shape(0), dtype=torch.complex64,
+                         device=dev).view(2, -1)
+    out = {"k2_ms": t(lambda: peer_kernels.a2a(blocks, pr)),
+           "fft_ms_per_direction": t(lambda: cycle(plan, x)) / 2}
+    del blocks, x, plan
+    he = (width,) * 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    buf = torch.randn(hgrid.buffer_shape(0, he), generator=gen, device=dev)
+    m = buf.shape[1] - 2 * width
+    out["k3_ms"] = t(lambda: peer_kernels.halo_exchange(
+        buf, hgrid.group(hgrid.axis_names[0]), 1, width, m, (N // 2,) * 2,
+        True))
+    out["halo_ms"] = t(lambda: update_halos(hgrid, buf, 0, he, (True,) * 3))
+    return out
+
+
+def peer_worker(rank: int, out_dir: str, kw: dict) -> None:
+    """One rank of :func:`peer_headline` (a ``card_ranks_worker`` body):
+    times :func:`peer_rank_times` and writes ``rank<r>.json`` to
+    ``out_dir`` (rank 0 adds whether MPS was on)."""
+    res = peer_rank_times(**kw)
+    if rank == 0:
+        res["mps"] = mps_active()  # while the ranks hold the card
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def merge_ranks(per_rank) -> dict:
+    """Each time as the slowest rank's, with every rank's beside it."""
+    keys = per_rank[0].keys()
+    return {**{k: max(r[k] for r in per_rank) for k in keys},
+            "ranks_ms": {k: [r[k] for r in per_rank] for k in keys}}
+
+
+def peer_headline(N: int = 512, width: int = 1, ranks: int = 4,
+                  iters: int = 5, n_trials: int = 3,
+                  timeout: float = 600) -> dict:
+    """The one-sided exchange path on ``ranks`` processes that share this
+    card (see the module docstring); prints and returns the slowest rank's
+    times, and whether MPS was on."""
+    from cudecomp_tpu_torch.utils.testing import run_card_ranks
+    _need_cuda()
+    peer_kernels.build()  # once here, not in every rank
+    with tempfile.TemporaryDirectory() as tmp:
+        run_card_ranks(peer_worker, ranks, str(Path(tmp, "pg")),
+                       (tmp, dict(N=N, width=width, iters=iters,
+                                  n_trials=n_trials)),
+                       timeout, "the one-sided exchange headline")
+        per_rank = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                    for r in range(ranks)]
+    mps = per_rank[0].pop("mps")
+    payload = {"metric": f"{N}^3 one-sided exchanges, {ranks} ranks sharing "
+                         f"one card, pdims (2, 2)",
+               **merge_ranks(per_rank), "unit": "ms", "mps": mps,
+               "note": ("MPS on" if mps else "no MPS: the ranks time-slice "
+                        "the card, so each time is that of a shared card"),
+               "device": torch.cuda.get_device_name(0)}
+    print(json.dumps(payload))
+    return payload
+
 
 if __name__ == "__main__":
     kw = {}

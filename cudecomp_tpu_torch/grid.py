@@ -19,7 +19,7 @@ import torch
 from cudecomp_tpu_torch import geometry
 from cudecomp_tpu_torch.config import GridConfig
 from cudecomp_tpu_torch.geometry import PencilInfo, Triple
-from cudecomp_tpu_torch.parallel.mesh import build_mesh
+from cudecomp_tpu_torch.parallel.mesh import build_mesh, check_cards
 
 
 def resolve_device(device) -> torch.device:
@@ -144,7 +144,9 @@ def make_grid(config: GridConfig, device, mesh=None,
 
     ``device`` is where this rank's pencils live.  With ``Pr * Pc > 1`` and
     no ``mesh``, a mesh over the whole default process group is built in
-    the configured rank order (every rank must call).  ``pdims (0, 0)``
+    the configured rank order (every rank must call).  Ranks may share a
+    card over a gloo default group (``parallel/mesh.py``: the rule, and
+    ``check_cards``, which refuses NCCL there).  ``pdims (0, 0)``
     (autotuning) is not available in this package yet.
     """
     if config.autotune_pdims:
@@ -153,6 +155,7 @@ def make_grid(config: GridConfig, device, mesh=None,
             "does not have yet; give pdims explicitly")
     device = resolve_device(device)
     if mesh is None and config.pdims != (1, 1):
+        check_cards(device)
         mesh = build_mesh(config.pdims, device.type, config.rank_order,
                           axis_names)
     return GridDescriptor(config=config, device=device, mesh=mesh,

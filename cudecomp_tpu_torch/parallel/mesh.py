@@ -51,3 +51,21 @@ def build_mesh(pdims: Tuple[int, int], device_type: str,
             f"process group has {world}; pass mesh= for a sub-mesh")
     return DeviceMesh(device_type, mesh_ranks(pdims, rank_order),
                       mesh_dim_names=tuple(axis_names))
+
+
+def check_cards(device: torch.device) -> None:
+    """Raise when ranks of an NCCL default group share a card (NCCL refuses
+    two ranks on one GPU; ranks that share a card run over gloo with the
+    kernel exchanges).  Collective when the group is NCCL; free otherwise."""
+    device = torch.device(device)
+    if device.type != "cuda" or "nccl" not in str(dist.get_backend()):
+        return
+    mine = str(torch.cuda.get_device_properties(device).uuid)
+    cards = [None] * dist.get_world_size()
+    dist.all_gather_object(cards, mine)
+    if len(set(cards)) < len(cards):
+        raise RuntimeError(
+            f"{len(cards)} ranks on {len(set(cards))} card(s) over an NCCL "
+            f"process group: NCCL refuses two ranks on one GPU. Initialise "
+            f"the default group with gloo and exchange with "
+            f"TransposeMethod.PALLAS_A2A and HaloMethod.PALLAS")

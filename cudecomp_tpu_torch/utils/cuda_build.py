@@ -121,7 +121,8 @@ def build(name: str, sources: Sequence[str]) -> Path:
                            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
     os.replace(tmp, path)
     for stale in path.parent.glob(f"lib{name}-*.so"):
-        if stale != path:
+        # another process's build in flight is no stale library
+        if stale != path and not stale.name.endswith(".tmp.so"):
             stale.unlink(missing_ok=True)
     log_info(f"built {path} in {time.perf_counter() - t0:.1f} s")
     return path

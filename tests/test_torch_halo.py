@@ -105,14 +105,24 @@ def test_pallas_method_takes_the_plain_path_on_one_rank():
     assert torch.equal(out, want)
 
 
-def test_pallas_method_across_ranks_raises_on_a_cuda_tensor():
-    # K3 is not ported: on a tensor off the CPU the exchange raises before
-    # any send (the dispatch is inspected with a meta tensor)
+def test_pallas_method_across_ranks_raises_on_a_cuda_tensor(monkeypatch):
+    # off the CPU the exchange is K3's, never its plain ring: a tensor K3
+    # cannot take raises before any send or launch (the dispatch is
+    # inspected with a meta tensor and a two-rank group that is never used)
+    from cudecomp_tpu_torch.ops import peer_kernels
+
+    def ring(*a, **k):
+        raise AssertionError("HaloMethod.PALLAS took the plain ring")
+
+    monkeypatch.setattr(H, "halo_ring", ring)
+    monkeypatch.setattr(peer_kernels.dist, "get_world_size", lambda g: 2)
+    monkeypatch.setattr(peer_kernels.dist, "get_rank", lambda g: 0)
     cfg = ct.GridConfig(gdims=(8, 8, 8), pdims=(2, 1),
                         halo_method=ct.HaloMethod.PALLAS)
-    grid = types.SimpleNamespace(config=cfg)
+    grid = types.SimpleNamespace(config=cfg, axis_names=("pr", "pc"),
+                                 group=lambda name: object())
     arr = torch.empty((10, 6, 10), device="meta")
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="K3 runs on CUDA tensors"):
         H._update_dim(grid, arr, 1, True, 1, 1, 4, 0, 2, (4, 4))
 
 

@@ -1,7 +1,8 @@
 """The CUDA kernels of cudecomp_tpu_torch: K1 (the local permute), K4 (the
 27-point stencil), K5 (the fused 2-axis DFT, whose plain version is held
-to JAX in ``test_torch_dft2.py``) and K0 (the probe every library runs at
-load).
+to JAX in ``test_torch_dft2.py``), K2, K2s and K3 (the one-sided
+exchanges, whose plans are held to JAX in ``test_torch_peer.py``) and K0
+(the probe every library runs at load).
 
 On the CPU the wrappers run their plain twins, which must be bit-equal to
 the JAX package's Pallas kernels run in interpret mode (K4's plain version
@@ -187,6 +188,27 @@ def test_build_compiles_once_per_source_hash(tmp_path, monkeypatch):
     assert p2 != p1 and p2.is_file() and not p1.exists()
     assert len(log.read_text().splitlines()) == 2
     assert not list((tmp_path / "_build").glob("*.tmp.so"))
+
+
+def test_build_keeps_another_builders_library_in_flight(tmp_path,
+                                                      monkeypatch):
+    # ranks that share a card may build one library at once: a finished
+    # build removes stale libraries, never another process's temporary
+    src_dir = tmp_path / "csrc"
+    src_dir.mkdir()
+    (src_dir / "k.cu").write_text("// v1\n")
+    nvcc, _ = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", src_dir)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: nvcc)
+    path = cuda_build.library_path("k", ("k.cu",))
+    path.parent.mkdir()
+    other = path.with_name(f"{path.stem}.99999.tmp.so")
+    other.write_text("half-written")
+    stale = path.with_name("libk-0123456789abcdef.so")
+    stale.write_text("old")
+    assert cuda_build.build("k", ("k.cu",)) == path
+    assert other.exists() and not stale.exists()
 
 
 def test_build_goes_to_the_user_cache_when_package_is_read_only(
@@ -559,3 +581,80 @@ def test_gpu_spectral_poisson_launches_k5_twice(cuda, monkeypatch):
     want = ct.models.PoissonSolver(grid=cpu, split_complex=True).solve(f)
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+# -- K2, K2s and K3 on the card ------------------------------------------------
+
+@pytest.mark.gpu
+def test_gpu_a2a_smoke_is_bit_equal(cuda, tmp_path):
+    # K2s: K2's single-rank program and K1, on a one-rank gloo group
+    import torch.distributed as dist
+    from cudecomp_tpu_torch.ops import peer_kernels as PK
+    from cudecomp_tpu_torch.parallel import symmetric
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        before = PK.a2a_launch_count
+        assert PK.a2a_smoke(1024, device=cuda) is True
+        assert PK.a2a_launch_count == before + 1
+        for n in (1, 3, 1024):  # odd byte counts move in narrower words
+            x = torch.arange(n * 7, device=cuda).to(torch.uint8)
+            assert torch.equal(PK.a2a(x, None), x)
+        ws = symmetric.workspace(None, x.device, 1)
+        x = torch.randn(3 << 18, device=cuda)  # 3 MiB: the workspace grows
+        assert torch.equal(PK.a2a(x, None), x)
+        grown = symmetric.workspace(None, x.device, 1)
+        assert grown is not ws and grown.recv_bytes == 3 << 20
+        assert grown.exchanges == 1  # a new workspace counts from 0
+        symmetric.release_workspaces()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_gpu_two_ranks_share_the_card_for_k2_and_k3(cuda, tmp_path):
+    # two processes on cuda:0 over gloo: K2 (twice in a row, and in the
+    # PALLAS_A2A transposes) and K3 (HaloMethod.PALLAS, periodic and not)
+    # bit-equal to their plain versions on CPU copies
+    from cudecomp_tpu_torch.utils.testing import (check_peer_ranks,
+                                                  run_card_ranks)
+    run_card_ranks(check_peer_ranks, 2, str(tmp_path / "pg"), (), 240,
+                   "two ranks on one card")
+
+
+@pytest.mark.gpu
+def test_gpu_kernel_exchanges_never_take_their_plain_version(cuda,
+                                                             monkeypatch):
+    # at P > 1 a CUDA tensor launches K2 / K3 or raises: with the plain
+    # versions poisoned and the library made to fail, both raise
+    from cudecomp_tpu_torch.ops import halo as H
+    from cudecomp_tpu_torch.ops import peer_kernels as PK
+    from cudecomp_tpu_torch.parallel import collectives
+
+    def plain(*a, **k):
+        raise AssertionError("a kernel exchange took its plain version")
+
+    fail = types.SimpleNamespace(
+        cudecomp_peer_a2a=lambda *a: 700, cudecomp_peer_halo=lambda *a: 700,
+        cudecomp_cuda_error_string=lambda e: b"an illegal memory access")
+    ws = types.SimpleNamespace(rank=0, size=2, next_exchange=lambda: 0,
+                               bases_dev=torch.zeros(2, dtype=torch.int64,
+                                                     device=cuda), tables={})
+    monkeypatch.setattr(collectives, "exchange_all_to_all", plain)
+    monkeypatch.setattr(H, "halo_ring", plain)
+    monkeypatch.setattr(PK, "_lib", lambda: fail)
+    monkeypatch.setattr(PK.symmetric, "workspace", lambda g, d, n: ws)
+    monkeypatch.setattr(PK.dist, "get_world_size", lambda g=None: 2)
+    monkeypatch.setattr(PK.dist, "get_rank", lambda g=None: 0)
+    a2a0, halo0 = PK.a2a_launch_count, PK.halo_launch_count
+    with pytest.raises(RuntimeError, match="K2 launch failed.*illegal"):
+        collectives.EXCHANGES["pallas_a2a"](
+            torch.zeros((8, 3), device=cuda), object(), 2, 4)
+    cfg = ct.GridConfig(gdims=(8, 8, 8), pdims=(2, 1),
+                        halo_method=ct.HaloMethod.PALLAS)
+    grid = types.SimpleNamespace(config=cfg, axis_names=("pr", "pc"),
+                                 group=lambda name: object())
+    with pytest.raises(RuntimeError, match="K3 launch failed.*illegal"):
+        H._update_dim(grid, torch.zeros((10, 6, 10), device=cuda), 1, True,
+                      1, 1, 4, 0, 2, (4, 4))
+    assert (PK.a2a_launch_count, PK.halo_launch_count) == (a2a0, halo0)

@@ -1,6 +1,7 @@
 """The port's slices end to end: the benchmark's round trip against the
 JAX package, the 4-rank gloo run of transposes, FFTs, halo updates, the
-ghost-plane stencil path and the CG solve against the JAX shards, and the
+ghost-plane stencil path, the CG solve and the kernel exchanges' path
+(``PALLAS_A2A``, ``HaloMethod.PALLAS``) against the JAX shards, and the
 port's independence from JAX."""
 
 import dataclasses
@@ -9,7 +10,6 @@ import os
 import re
 import subprocess
 import sys
-import time
 import zlib
 from pathlib import Path
 
@@ -26,7 +26,7 @@ from cudecomp_tpu.ops.fft import DistributedFFT as JFFT
 from cudecomp_tpu.utils.arrays import coords_of_shard_index
 
 from cudecomp_tpu_torch import bench, performance
-from cudecomp_tpu_torch.utils.testing import multirank_worker
+from cudecomp_tpu_torch.utils.testing import multirank_worker, run_ranks
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -86,6 +86,8 @@ def test_port_never_imports_jax():
             "cudecomp_tpu_torch.models.taylor_green, "
             "cudecomp_tpu_torch.models.incompressible, "
             "cudecomp_tpu_torch.utils.cuda_build, "
+            "cudecomp_tpu_torch.ops.peer_kernels, "
+            "cudecomp_tpu_torch.parallel.symmetric, "
             "cudecomp_tpu_torch.utils.testing, cudecomp_tpu_torch.utils.env\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cudecomp_tpu' "
@@ -219,6 +221,38 @@ def _jax_cg_case(name, **kw):
                 shards={"u": _shards(grid, u, 0)})
 
 
+def _jax_peer_case(name, axis, he, periods, **kw):
+    """The kernel exchanges' path in the JAX package (which takes
+    lax.all_to_all and the ppermute ring on the CPU mesh): the four
+    transposes, the c2c FFT and a halo update."""
+    jcfg, grid = _jax_grid(transpose_method=cd.TransposeMethod.PALLAS_A2A,
+                           halo_method=cd.HaloMethod.PALLAS, **kw)
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    f = rng.standard_normal(jcfg.gdims)
+    cf = f + 1j * rng.standard_normal(jcfg.gdims)
+    shards = {}
+    buf = cd.scatter_global(grid, f, 0)
+    for op, ax in (("x_to_y", 1), ("y_to_z", 2), ("z_to_y", 1),
+                   ("y_to_x", 0)):
+        buf = getattr(cd, f"transpose_{op}")(grid, buf)
+        shards[op] = _shards(grid, buf, ax)
+    plan = JFFT(grid=grid)
+    xh = plan.forward(cd.scatter_global(grid, cf, 0))
+    shards["fft"] = _shards(grid, xh, 2)
+    shards["ifft"] = _shards(grid, plan.inverse(xh), 0)
+    hb = cd.update_halos(grid, cd.scatter_global(grid, f, axis,
+                                                 halo_extents=he),
+                         axis, he, periods)
+    local = jgeo.pencil_buffer_shape(jcfg, axis, he)
+    shards["halo"] = {
+        tuple(int(c) for c in coords_of_shard_index(grid, axis, s.index,
+                                                    local)):
+        np.asarray(s.data) for s in hb.addressable_shards}
+    return dict(name=name, kind="peer", config=_spec(jcfg), field=f,
+                cfield=cf, axis=axis, halo_extents=he, periods=periods,
+                shards=shards)
+
+
 def test_four_gloo_ranks_match_jax_shards(tmp_path):
     ac = dict(transpose_axis_contiguous=(True, True, True))
     cases = [
@@ -259,16 +293,15 @@ def test_four_gloo_ranks_match_jax_shards(tmp_path):
         # the CG solve's dots summed over the ranks
         _jax_cg_case("cg-2x2", gdims=(8, 8, 8), pdims=(2, 2)),
         _jax_cg_case("cg-1x4", gdims=(8, 8, 8), pdims=(1, 4)),
+        # the kernel exchanges' path (K2, K3; their plain versions on the
+        # CPU), uneven, both rank orders, with K2's and K3's plans
+        _jax_peer_case("peer-2x2-colmajor", 0, (1, 1, 1), (True, False, True),
+                       gdims=(9, 10, 11), pdims=(2, 2),
+                       rank_order=cd.RankOrder.COL_MAJOR),
+        _jax_peer_case("peer-1x4", 1, (1, 2, 1), (False, True, True),
+                       gdims=(9, 10, 11), pdims=(1, 4)),
+        _jax_peer_case("peer-4x1", 2, (2, 1, 1), (True, True, False),
+                       gdims=(9, 10, 11), pdims=(4, 1)),
     ]
-    ctx = torch.multiprocessing.start_processes(
-        multirank_worker, args=(4, str(tmp_path / "pg_init"), cases),
-        nprocs=4, join=False, start_method="spawn")
-    deadline = time.monotonic() + 300
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            for p in ctx.processes:
-                p.join(10)
-            pytest.fail("the 4-rank gloo run did not finish in 300 s")
-    assert all(p.exitcode == 0 for p in ctx.processes)
+    run_ranks(multirank_worker, 4, (4, str(tmp_path / "pg_init"), cases),
+              300, "the 4-rank gloo run")
