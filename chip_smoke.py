@@ -18,9 +18,11 @@ Phases, each of which raises on failure (nothing is caught):
      input modes, ragged shapes and the 512^3 f32 path shape; max abs
      difference <= 1e-6 (f32) or 1e-14 (f64) times sum|w| * max|input|;
      K5 against its plain version (dft2_ref) and against complex128
-     torch.fft.fftn over dims (1, 2), forward and inverse, on
-     (129, 256, 256), (256, 256, 256), (16, 8, 128) and (3, 8, 128):
-     max abs difference <= 1e-5 * max|reference|;
+     torch.fft.fftn over dims (1, 2), forward and inverse, on shapes that
+     take every branch and cluster size: (129, 256, 256), (256, 256, 256),
+     (3, 24, 128), (5, 200, 256), (16, 8, 128), (1, 256, 128),
+     (3, 16, 256), (4, 32, 128), (2, 64, 256) and (2, 128, 128): max abs
+     difference <= 1e-5 * max|reference|;
   5. the FFT path: the 512^3 complex64 distributed FFT on a pdims (1, 1)
      axis-contiguous grid through the public entry points.  The forward
      spectrum is held to torch.fft.fftn of the same global field (relative
@@ -49,27 +51,34 @@ Phases, each of which raises on failure (nothing is caught):
   8. timing: the FFT round trip (ms per direction, GFLOPS), K1's bandwidth
      beside clone() and its plain twin; the diffusion step, K4 beside the
      conv3d yardstick and its plain version, the halo update and the CG
-     iteration; K5 beside its bound, dft2_ref and cuFFT at (129, 256,
-     256); the Poisson solve with K5 on and off, the Taylor-Green step and
-     the projection-solver step; torch.profiler breakdowns by kernel, with
+     iteration; K5 at (129, 256, 256) beside its bound, dft2_ref, cuFFT
+     and clone() of the same bytes (GB/s), with the cluster size it
+     launches; the Poisson solve with K5 on and off, the Taylor-Green step
+     and the projection-solver step; torch.profiler breakdowns by kernel, with
      the card's idle share, of one FFT round trip, one diffusion step, one
      CG chunk, one Taylor-Green step and one K5 Poisson solve;
   9. the one-sided exchange path: K2s (a2a_smoke, K2's single-rank program
-     and K1) bit-equal on a one-rank gloo group in this process; then four
-     ranks in four processes sharing the card (gloo over file://, every
-     rank on cuda:0): K2 over each mesh dim on a rank's 512^3/4 c64 pencil
-     (the path's size) bit-equal to its plain executor on the card; the
-     512^3 c64 axis-contiguous PALLAS_A2A round trip
-     at pdims (2, 2), each rank holding its shard to its slice of the
+     and K1) bit-equal on a one-rank gloo group in this process, one CUDA
+     launch per call, timed, and then torch.profiler sees that one launch,
+     a copy_kernel, on the card; then four ranks in four processes sharing the card
+     (gloo over file://, every rank on cuda:0): K2 over each mesh dim on a
+     rank's 512^3/4 c64 pencil (the path's size) bit-equal to its plain
+     executor on the card; the 512^3 c64 axis-contiguous PALLAS_A2A round
+     trip at pdims (2, 2), each rank holding its shard to its slice of the
      complex128 torch.fft.fftn of the global field (forward rel L2 <= 1e-5
-     over all ranks, round trip max abs < 5e-4,
-     exactly 4 K2 launches per rank and no all_to_all_single), two
+     over all ranks, round trip max abs < 5e-4, exactly 4 K2 launches per
+     rank, each 4 CUDA launches, and no all_to_all_single), two
      HaloMethod.PALLAS updates of the 512^3 f32 x-pencil at width 1,
      periodic and not, bit-equal to the plain wrapped-index buffer with 2
      K3 launches each; K2 and K3 on a 66 x 70 x 74 grid at pdims (1, 4) and
      (4, 1) bit-equal to their plain versions over gloo on CPU copies; the
-     ranks' times of K2, the round trip, K3 and the update, and, in this
-     process, the plain executor's times on the card for the same data.
+     ranks' times of K2, the round trip, K3 and the update; after them one
+     more K2 exchange under torch.profiler, whose 2 signal_wait_kernel and
+     2 move_kernel runs on the card must be the 4 launches its C entry
+     reports, and K2 over the world on blocks that outgrow its workspace,
+     bit-equal, the workspace replaced by a new one
+     (testing.check_workspace_growth); in this process, the plain
+     executor's times on the card for the same data.
 
 Before each path (5, 6, 7 and the four ranks of 9) every launch count is
 set to 0 (in 5, 6 and 7 the loaded libraries are dropped too, so the path
@@ -83,6 +92,7 @@ is not available or the package is missing.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -536,13 +546,17 @@ def complex_field(torch, shape, gen):
                                              generator=gen, device=DEVICE))
 
 
+K5_SHAPES = ((NS // 2 + 1, NS, NS), (NS, NS, NS), (3, 24, 128), (5, 200, 256),
+             (16, 8, 128), (1, 256, 128), (3, 16, 256), (4, 32, 128),
+             (2, 64, 256), (2, 128, 128))
+
+
 def dft2_kernel_checks(torch, D, gen):
     """Phase 4: K5 vs dft2_ref and vs complex128 cuFFT over dims (1, 2),
     forward and inverse; returns the largest absolute difference to
     dft2_ref and the largest relative (over max|reference|) to each."""
     worst = {"abs": 0.0, "ref": 0.0, "c128": 0.0}
-    for shape in ((NS // 2 + 1, NS, NS), (NS, NS, NS), (16, 8, 128),
-                  (3, 8, 128)):
+    for shape in K5_SHAPES:
         x = complex_field(torch, shape, gen)
         for inverse in (False, True):
             got = D.dft2(x, inverse)
@@ -564,6 +578,8 @@ def dft2_kernel_checks(torch, D, gen):
                      "c128": max(worst["c128"], e_c)}
             del got, ref, c128
     torch.cuda.synchronize()
+    worst["clusters"] = sorted({D.dft2_plan(*s[1:]).cluster
+                                for s in K5_SHAPES})
     return worst
 
 
@@ -678,11 +694,10 @@ def spectral_path(torch, ct, bench, K, S, D, cb):
 
 
 def dft2_timing(torch, D, perf, gen):
-    """Phase 8: K5, dft2_ref and cuFFT's fftn over dims (1, 2) at the r2c
-    spectrum of a 256^3 field, (129, 256, 256) c64; ms per call (means
-    over trials), and the bound of the transform: its bytes, or its
-    5 N log2 N flops as an FFT, whichever takes longer.  The dense DFT's
-    own flop time, which bounds K5 as written, is ``dense_flop_ms``."""
+    """Phase 8: K5, dft2_ref, cuFFT's fftn over dims (1, 2) and clone() of
+    the same tensor at the r2c spectrum of a 256^3 field, (129, 256, 256)
+    c64; ms per call (means over trials), and the bound of the transform:
+    its bytes, or its 5 N log2 N flops as an FFT, whichever takes longer."""
     shape = (NS // 2 + 1, NS, NS)
     x = complex_field(torch, shape, gen)
 
@@ -698,17 +713,18 @@ def dft2_timing(torch, D, perf, gen):
     out = {k: mean(v) for k, v in runs.items()}
     out["runs_ms"] = runs
     out["cufft_ms"] = t(lambda: torch.fft.fftn(x, dim=(1, 2)))
+    out["clone_ms"] = t(x.clone)
     X, n1, n2 = shape
-    dense_flops = 8 * X * n1 * n2 * (n1 + n2)
     fft_flops = 5 * X * n1 * n2 * math.log2(n1 * n2)
     nbytes = 2 * x.numel() * x.element_size()
-    out["dense_flop_ms"] = dense_flops / FP32_FLOP_PER_S * 1e3
     out["flop_ms"] = fft_flops / FP32_FLOP_PER_S * 1e3
     out["byte_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     out["bound_ms"] = max(out["flop_ms"], out["byte_ms"])
     out["bound_by"] = ("operations" if out["flop_ms"] >= out["byte_ms"]
                        else "bytes")
-    out["tflops"] = dense_flops / (out["kernel"] * 1e-3) / 1e12
+    out["gbs"] = {k: nbytes / (out[k] * 1e-3) / 1e9
+                  for k in ("kernel", "cufft_ms", "clone_ms")}
+    out["plan"] = D.dft2_plan(n1, n2)
     out["shape"] = shape
     return out
 
@@ -738,6 +754,27 @@ def probe_timing(torch, K, cb, perf):
 
 PEER_RANKS = 4
 PEER_SMALL = (66, 70, 74)   # uneven at P = 4 along every dim
+# the kernels of csrc/peer.cu, as the profiler names them (demangled or not)
+PEER_KERNEL = re.compile(r"(?:::|\d)(signal_wait_kernel|move_kernel|"
+                         r"copy_kernel)(?![a-z_])")
+
+
+def traced_k2_launches(torch, PK, fn):
+    """One call of ``fn`` (a K2 exchange) under torch.profiler: the
+    kernels of csrc/peer.cu that the profiler saw run on the card, by
+    name, and the CUDA launches that K2's C entry reported for it."""
+    from torch.profiler import ProfilerActivity, profile
+    n0 = PK.a2a_cuda_launch_count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.key_averages():
+        m = PEER_KERNEL.search(e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            seen[m.group(1)] = seen.get(m.group(1), 0) + e.count
+    return seen, PK.a2a_cuda_launch_count - n0
 
 
 def peer_worker(rank, out_dir):
@@ -812,6 +849,7 @@ def peer_worker(rank, out_dir):
     back = plan.inverse(xh)
     torch.cuda.synchronize()
     fft_k2 = PK.a2a_launch_count
+    fft_k2_cuda = PK.a2a_cuda_launch_count
     halo_k3 = []
     for periods, buf in bufs.items():
         n0 = PK.halo_launch_count
@@ -833,12 +871,14 @@ def peer_worker(rank, out_dir):
     dist.all_reduce(err, op=dist.ReduceOp.MAX)
     res = {"rel_l2": math.sqrt(float(sums[0]) / float(sums[1])),
            "roundtrip_err": float(err[0]), "counts": counts,
-           "fft_k2": fft_k2, "halo_k3": halo_k3, "halo_err": 0.0,
+           "fft_k2": fft_k2, "fft_k2_cuda": fft_k2_cuda, "halo_k3": halo_k3,
+           "halo_err": 0.0,
            "k2_err": k2_err}
     del x, ref, xh, back, plan
-    if fft_k2 != 4 or counts["all_to_all_single"]:
+    if (fft_k2, fft_k2_cuda) != (4, 16) or counts["all_to_all_single"]:
         raise AssertionError(f"rank {rank}: the round trip launched K2 "
-                             f"{fft_k2} times (expected 4) and called "
+                             f"{fft_k2} times in {fft_k2_cuda} CUDA launches "
+                             f"(expected 4 in 16) and called "
                              f"all_to_all_single {len(a2a_single)} times")
     if not (res["rel_l2"] <= RTOL_FFT and res["roundtrip_err"] < GATE):
         raise AssertionError(f"PALLAS_A2A FFT: forward rel L2 "
@@ -861,6 +901,21 @@ def peer_worker(rank, out_dir):
     res["small"] = testing.check_peer_kernels(torch.device(DEVICE),
                                               PEER_SMALL, seed=3)
     res["times"] = bench.peer_rank_times(N, 1, device=DEVICE)
+    # after the timing: one K2 exchange over pr under the profiler, whose
+    # kernels on the card must be the launches the C entry reports; then
+    # K2 over the world on blocks that outgrow its workspace
+    blocks = torch.randn((2, 1 << 16), generator=gen, device=DEVICE)
+    group = fgrid.group(fgrid.axis_names[0])
+    PK.a2a(blocks, group)
+    seen, reported = traced_k2_launches(torch, PK,
+                                        lambda: PK.a2a(blocks, group))
+    res["k2_traced"] = {"kernels": seen, "reported": reported}
+    if not (sum(seen.values()) == reported == 4
+            and seen.get("signal_wait_kernel") == 2):
+        raise AssertionError(f"rank {rank}: one K2 exchange ran {seen} on "
+                             f"the card and reported {reported} CUDA "
+                             f"launches; expected 2 waits and 2 moves")
+    testing.check_workspace_growth(torch.device(DEVICE), seed=3)
     if rank == 0:
         res["mps"] = bench.mps_active()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
@@ -890,10 +945,14 @@ def peer_phase(torch, perf):
         K.reset_launch_count()
         ok = PK.a2a_smoke(1024, device=DEVICE)
         torch.cuda.synchronize()
-        k2s = {"launches": PK.a2a_launch_count, "k1": K.launch_count}
-        if not ok or (k2s["launches"], k2s["k1"]) != (1, 1):
-            raise AssertionError(f"K2s: bit-equal {ok}, K2 and K1 launches "
-                                 f"{k2s}, expected 1 and 1")
+        k2s = {"launches": PK.a2a_launch_count,
+               "cuda_launches": PK.a2a_cuda_launch_count,
+               "k1": K.launch_count}
+        if not ok or (k2s["launches"], k2s["cuda_launches"],
+                      k2s["k1"]) != (1, 1, 1):
+            raise AssertionError(f"K2s: bit-equal {ok}, K2 exchanges, K2 "
+                                 f"CUDA launches and K1 launches {k2s}, "
+                                 f"expected 1, 1 and 1")
         x = torch.arange(1024 * 256, dtype=torch.float32,
                          device=DEVICE).reshape(1024, 256)
         k2s["err"] = float((PK.a2a(x, None) - x).abs().max())
@@ -902,6 +961,13 @@ def peer_phase(torch, perf):
         plan1 = [PK.a2a_plan(1, 0, x.numel() * 4)]
         k2s["plain_ms"] = t(lambda: PK.apply_plans(plan1, [x], [out]), 100)
         k2s["clone_ms"] = t(x.clone, 100)
+        # after the timings, so that no profiler session precedes them
+        k2s["traced"], reported = traced_k2_launches(
+            torch, PK, lambda: PK.a2a(x, None))
+        if not (k2s["traced"] == {"copy_kernel": 1} and reported == 1):
+            raise AssertionError(f"K2s: one call ran {k2s['traced']} on the "
+                                 f"card and reported {reported} CUDA "
+                                 f"launches; expected one copy_kernel")
         k2s["bytes"] = 2 * x.numel() * 4
         res["k2s"] = k2s
         symmetric.release_workspaces()
@@ -1001,9 +1067,9 @@ def main() -> int:
           f"diff {k4_worst:.3e}, at most {k4_ratio:.3f} of its tolerance")
     k5 = dft2_kernel_checks(torch, D, gen)
     print(f"K5 within {K5_EPS} x max|reference| on every case, forward and "
-          f"inverse: max abs diff to dft2_ref {k5['abs']:.3e} "
-          f"({k5['ref']:.3e} of max|dft2_ref|), {k5['c128']:.3e} of "
-          f"max|complex128 cuFFT|")
+          f"inverse, clusters of {k5['clusters']} blocks: max abs diff to "
+          f"dft2_ref {k5['abs']:.3e} ({k5['ref']:.3e} of max|dft2_ref|), "
+          f"{k5['c128']:.3e} of max|complex128 cuFFT|")
 
     # phase 5: the FFT path
     mp = main_path(torch, ct, K, S, D, cb, bench)
@@ -1098,14 +1164,16 @@ def main() -> int:
           f"launch; clone() {k0_plain * 1e3:.2f} us")
     torch.cuda.empty_cache()
     k5t = dft2_timing(torch, D, perf, gen)
-    print(f"[{card}] K5 dft2 {k5t['shape']} c64: kernel {k5t['kernel']:.3f} "
-          f"ms = {k5t['tflops']:.1f} dense-DFT TFLOP/s, bound "
-          f"{k5t['bound_ms']:.4f} ms by {k5t['bound_by']} (bytes "
-          f"{k5t['byte_ms']:.4f} ms, FFT flops {k5t['flop_ms']:.4f} ms; the "
-          f"dense DFT's flops {k5t['dense_flop_ms']:.3f} ms); dft2_ref "
-          f"{k5t['plain']:.3f} ms (runs "
-          f"{k5t['runs_ms']}); torch.fft.fftn(dim=(1, 2)) "
-          f"{k5t['cufft_ms']:.3f} ms")
+    k5g, k5p = k5t["gbs"], k5t["plan"]
+    print(f"[{card}] K5 dft2 {k5t['shape']} c64, clusters of {k5p.cluster} "
+          f"blocks ({k5p.smem} B shared each, {k5p.chunk}-column chunks): "
+          f"kernel {k5t['kernel']:.4f} ms = {k5g['kernel']:.0f} GB/s; "
+          f"clone() of the same bytes {k5t['clone_ms']:.4f} ms = "
+          f"{k5g['clone_ms']:.0f} GB/s; bound {k5t['bound_ms']:.4f} ms by "
+          f"{k5t['bound_by']} (bytes {k5t['byte_ms']:.4f} ms, FFT flops "
+          f"{k5t['flop_ms']:.4f} ms); torch.fft.fftn(dim=(1, 2)) "
+          f"{k5t['cufft_ms']:.4f} ms = {k5g['cufft_ms']:.0f} GB/s; dft2_ref "
+          f"{k5t['plain']:.3f} ms (runs {k5t['runs_ms']})")
     pois = bench.poisson_headline(N=NS)
     tgh = bench.tg_headline(N=NS)
     nsh = bench.ns_headline(N=NS)
@@ -1164,7 +1232,9 @@ def main() -> int:
     mps = ("MPS on" if peer["mps"] else "no MPS: the four ranks time-slice "
            "the card")
     print(f"K2s: a2a_smoke bit-equal on a one-rank gloo group (K2 "
-          f"{k2s['launches']}, K1 {k2s['k1']} launches)")
+          f"{k2s['launches']} exchange in {k2s['cuda_launches']} CUDA "
+          f"launch, K1 {k2s['k1']} launch); kernels the profiler saw in one "
+          f"call: {k2s['traced']}")
     rel = max(r["rel_l2"] for r in ranks)
     print(f"{PEER_RANKS} ranks on one card over gloo (compute mode "
           f"{peer['compute_mode']}, {mps}), {peer['ranks_s']:.1f} s: 512^3 "
@@ -1172,13 +1242,18 @@ def main() -> int:
           f"complex128 torch.fft.fftn {rel:.3e} (<= {RTOL_FFT}), round trip "
           f"max abs err "
           f"{max(r['roundtrip_err'] for r in ranks):.3e} (< {GATE}), K2 "
-          f"launches per rank {[r['fft_k2'] for r in ranks]}; 512^3 f32 "
+          f"launches per rank {[r['fft_k2'] for r in ranks]}, CUDA launches "
+          f"per K2 exchange "
+          f"{[r['fft_k2_cuda'] / r['fft_k2'] for r in ranks]} (the "
+          f"profiler saw {ranks[0]['k2_traced']['kernels']} in one exchange "
+          f"on rank 0); 512^3 f32 "
           f"HaloMethod.PALLAS width 1, periodic and not, bit-equal to the "
           f"plain wrapped-index buffer, K3 launches per rank and update "
           f"{[r['halo_k3'] for r in ranks]}; path launches {path}; "
           f"{PEER_SMALL} at pdims (1, 4) and (4, 1): K2 ({small['K2']} "
           f"launches) and K3 ({small['K3']}) bit-equal to their plain "
-          f"versions over gloo")
+          f"versions over gloo; K2 grew the world's workspace past 1 MiB, "
+          f"bit-equal")
     if path["K2"] < 1 or path["K3"] < 1 or path["all_to_all_single"]:
         raise AssertionError(f"the one-sided path skipped a kernel: {path}")
     print(f"[{card}, {mps}] K2 one exchange of a rank's 512^3 c64 pencil "

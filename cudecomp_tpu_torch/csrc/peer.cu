@@ -1,6 +1,6 @@
 // K2 (the one-sided all-to-all) and K3 (the one-sided halo ring) over one
-// process group, for Hopper (sm_90a).  At P = 1 K2's entry is K2s, the
-// smoke of its single-rank program.
+// process group, for Hopper (sm_90a).  At P = 1 K2 is K2s, the smoke of its
+// single-rank program.
 //
 // Replaces the TPU kernels of cudecomp_tpu/ops/pallas_kernels.py:
 //   * K2: exchange_pallas_a2a (:183, pallas_call :219) running _a2a_kernel
@@ -25,19 +25,20 @@
 // receive semaphores (_a2a_kernel :88-102 and :126-138, _halo_kernel
 // :533-541).
 //
-// One exchange is four launches on the caller's stream, counted as one K2 or
-// K3 launch by ops/peer_kernels.py:
+// One exchange over P > 1 ranks is four launches on the caller's stream,
+// counted as one K2 or K3 launch by ops/peer_kernels.py:
 //   1. signal_wait(2e+1) with the peer set: the entry barrier, so no put
 //      lands in a receive region that its owner is still reading;
-//   2. the puts of the plan, all in one grid (blockIdx.y = move): K2's
-//      block p to slot `me` of rank p's receive region (the self block to
-//      this rank's own, a local copy); K3's two slabs, strided when the dim
+//   2. the puts of the plan, all in one grid (blockIdx.y = move): K2's self
+//      block straight to the output tensor (the JAX kernel's local DMA,
+//      :104-110) and block p to rank p's receive region, in the slot of
+//      this rank among p's P-1 senders; K3's two slabs, strided when the dim
 //      is not the outermost, packed into slot 0 of the right neighbour's
 //      region and slot 1 of the left neighbour's;
 //   3. signal_wait(2e+2): the peers' puts have landed here;
-//   4. the unpacks: K2 copies its receive region out to the output tensor,
-//      which the caller then owns; K3 writes its slots into its halos, in
-//      place.
+//   4. the unpacks: K2 copies its P-1 received blocks out to the output
+//      tensor, which the caller then owns; K3 writes its slots into its
+//      halos, in place.
 // e counts the workspace's exchanges, so a slot only grows and the pads are
 // never reset; a rank may run ahead of one that it does not wait for, which
 // is why a wait compares with >=.  The barrier is a one-block launch between
@@ -47,20 +48,28 @@
 // kTimeoutNs instead of holding the card.  The fences are system scope, so
 // the same code is right across NVLink.
 //
+// K2 at P = 1 has no peer: no barrier and no workspace (the JAX kernel's
+// `if P > 1 and barrier`, :88).  Its program is one launch of the copy
+// kernel, blocks -> out, one pass (cudecomp_peer_copy).
+//
 // The moves are the plans of ops/peer_kernels.py (a2a_plan, halo_plan),
 // uploaded once as a table; the kernel adds nothing to them.  A move is
 // `rows` runs of `row_bytes`, copied in the widest word (up to 16 bytes) that
 // the plan's offsets and the tensors' addresses allow; the wrapper picks it.
 //
-// What bounds it on this card: bytes.  K2 reads and writes each rank's
-// blocks once into the receive regions, and once more in the copy-out, a
-// pass the port keeps until the puts can target the output tensor itself.
-// K3 moves four faces per dim (two slabs read, two halos written) plus the
-// packed copies; at 512^3 f32 a face is half a megabyte, so its four
-// launches and two barriers are the cost.
+// What bounds it on this card: bytes.  K2 reads each rank's P blocks once
+// and writes them once, the self block into the output and the others into
+// the peers' receive regions, then reads and writes the P-1 received blocks
+// once more in the copy-out: (4P - 2) blocks of traffic per rank, a pass the
+// port keeps until the puts can target the peers' output tensors.  K3 moves
+// four faces per dim (two slabs read, two halos written) plus the packed
+// copies; at 512^3 f32 a face is half a megabyte, so its four launches and
+// two barriers are the cost.
 //
 // Plain C interface for ctypes: no synchronisation, no allocation; returns
-// the first cudaGetLastError() that is not cudaSuccess.
+// the first cudaGetLastError() that is not cudaSuccess, and sets
+// *launched to the number of kernels the call launched (each launch adds
+// one where it is made, so ops/peer_kernels.py counts what ran).
 
 #include <cuda_runtime.h>
 
@@ -128,15 +137,23 @@ signal_wait_kernel(const uint64_t* __restrict__ bases, int me, PeerSet set,
   }
 }
 
+// The error of the launch just made; adds one to *launched if it launched.
+cudaError_t launched_if_ok(int* launched) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return err;
+}
+
 cudaError_t signal_wait(const void* bases, int me, const int* peers,
-                        int npeers, uint64_t epoch, cudaStream_t stream) {
+                        int npeers, uint64_t epoch, cudaStream_t stream,
+                        int* launched) {
   if (npeers < 1 || npeers > kMaxPeers) return cudaErrorInvalidValue;
   PeerSet set;
   set.n = npeers;
   for (int i = 0; i < npeers; ++i) set.ranks[i] = peers[i];
   signal_wait_kernel<<<1, kMaxPeers, 0, stream>>>(
       static_cast<const uint64_t*>(bases), me, set, epoch);
-  return cudaGetLastError();
+  return launched_if_ok(launched);
 }
 
 // Byte address of offset `off` in the receive region of rank `rank`'s
@@ -147,9 +164,25 @@ __device__ __forceinline__ char* region(const uint64_t* bases, char* local,
                    : reinterpret_cast<char*>(bases[rank]) + kPadBytes) + off;
 }
 
-// Move blockIdx.y of the table.  One run (K2's blocks and copy-out) takes a
-// grid-stride loop with kUnroll loads in flight before their stores; several
-// strided rows (K3's slabs and halos) index row and column per word.
+// One contiguous run of `words` words: a grid-stride loop with kUnroll loads
+// in flight before their stores; thread i of `step` starts at word i.
+template <typename W>
+__device__ __forceinline__ void copy_run(const W* __restrict__ s,
+                                         W* __restrict__ d, int64_t words,
+                                         int64_t i, int64_t step) {
+  for (; i + (kUnroll - 1) * step < words; i += kUnroll * step) {
+    W v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) v[k] = s[i + k * step];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) d[i + k * step] = v[k];
+  }
+  for (; i < words; i += step) d[i] = s[i];
+}
+
+// Move blockIdx.y of the table.  One run (K2's blocks and copy-out) takes
+// copy_run; several strided rows (K3's slabs and halos) index row and column
+// per word.
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
 move_kernel(const int64_t* __restrict__ moves,
@@ -163,16 +196,8 @@ move_kernel(const int64_t* __restrict__ moves,
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (rows == 1) {
-    const W* __restrict__ s = reinterpret_cast<const W*>(src);
-    W* __restrict__ d = reinterpret_cast<W*>(dst);
-    for (; i + (kUnroll - 1) * step < row_words; i += kUnroll * step) {
-      W v[kUnroll];
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) v[k] = s[i + k * step];
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) d[i + k * step] = v[k];
-    }
-    for (; i < row_words; i += step) d[i] = s[i];
+    copy_run(reinterpret_cast<const W*>(src), reinterpret_cast<W*>(dst),
+             row_words, i, step);
   } else {
     const int64_t src_stride = m[2];
     const int64_t dst_stride = m[5];
@@ -186,35 +211,72 @@ move_kernel(const int64_t* __restrict__ moves,
   __threadfence_system();  // the puts are visible before the next signal
 }
 
+// K2's single-rank program: `words` words from src to dst.
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+copy_kernel(const W* __restrict__ src, W* __restrict__ dst, int64_t words) {
+  copy_run(src, dst, words,
+           static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x,
+           static_cast<int64_t>(gridDim.x) * blockDim.x);
+}
+
+// Blocks of kThreads threads for a copy of `words` words, kUnroll each.
+unsigned copy_blocks(int64_t words) {
+  int64_t blocks = (words + kThreads * kUnroll - 1) / (kThreads * kUnroll);
+  if (blocks < 1) blocks = 1;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  return static_cast<unsigned>(blocks);
+}
+
+template <typename W>
+cudaError_t copy(const void* src, void* dst, int64_t words,
+                 cudaStream_t stream, int* launched) {
+  copy_kernel<W><<<copy_blocks(words), kThreads, 0, stream>>>(
+      static_cast<const W*>(src), static_cast<W*>(dst), words);
+  return launched_if_ok(launched);
+}
+
 template <typename W>
 cudaError_t move(const void* moves, int nmoves, const void* bases,
                  const void* src_local, void* dst_local, int64_t max_words,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, int* launched) {
   if (nmoves == 0) return cudaSuccess;  // K3 at a non-periodic edge
   if (nmoves < 0 || nmoves > 65535) return cudaErrorInvalidValue;
-  int64_t blocks = (max_words + kThreads * kUnroll - 1) / (kThreads * kUnroll);
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(nmoves));
+  const dim3 grid(copy_blocks(max_words), static_cast<unsigned>(nmoves));
   move_kernel<W><<<grid, kThreads, 0, stream>>>(
       static_cast<const int64_t*>(moves), static_cast<const uint64_t*>(bases),
       const_cast<char*>(static_cast<const char*>(src_local)),
       static_cast<char*>(dst_local));
-  return cudaGetLastError();
+  return launched_if_ok(launched);
 }
 
 template <typename W>
 cudaError_t exchange(const void* src, void* dst, const void* bases, int me,
                      const int* peers, int npeers, uint64_t e,
                      const void* puts, int nputs, const void* unpacks,
-                     int nunpacks, int64_t max_words, cudaStream_t s) {
-  cudaError_t err = signal_wait(bases, me, peers, npeers, 2 * e + 1, s);
+                     int nunpacks, int64_t max_words, cudaStream_t s,
+                     int* launched) {
+  cudaError_t err =
+      signal_wait(bases, me, peers, npeers, 2 * e + 1, s, launched);
   if (err != cudaSuccess) return err;
-  err = move<W>(puts, nputs, bases, src, dst, max_words, s);
+  err = move<W>(puts, nputs, bases, src, dst, max_words, s, launched);
   if (err != cudaSuccess) return err;
-  err = signal_wait(bases, me, peers, npeers, 2 * e + 2, s);
+  err = signal_wait(bases, me, peers, npeers, 2 * e + 2, s, launched);
   if (err != cudaSuccess) return err;
-  return move<W>(unpacks, nunpacks, bases, src, dst, max_words, s);
+  return move<W>(unpacks, nunpacks, bases, src, dst, max_words, s, launched);
+}
+
+// f(W{}) for the word type W of `word_bytes` bytes.
+template <typename F>
+cudaError_t with_word(int64_t word_bytes, F&& f) {
+  switch (word_bytes) {
+    case 1: return f(uint8_t{});
+    case 2: return f(uint16_t{});
+    case 4: return f(uint32_t{});
+    case 8: return f(uint64_t{});
+    case 16: return f(uint4{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The puts read `src` where a move's source rank is -1, the unpacks write
@@ -222,26 +284,13 @@ cudaError_t exchange(const void* src, void* dst, const void* bases, int me,
 int run(const void* src, void* dst, const void* bases, int me,
         const int* peers, int npeers, uint64_t e, const void* puts, int nputs,
         const void* unpacks, int nunpacks, int64_t max_words,
-        int64_t word_bytes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (word_bytes) {
-    case 1: return exchange<uint8_t>(src, dst, bases, me, peers, npeers, e,
-                                     puts, nputs, unpacks, nunpacks,
-                                     max_words, s);
-    case 2: return exchange<uint16_t>(src, dst, bases, me, peers, npeers, e,
-                                      puts, nputs, unpacks, nunpacks,
-                                      max_words, s);
-    case 4: return exchange<uint32_t>(src, dst, bases, me, peers, npeers, e,
-                                      puts, nputs, unpacks, nunpacks,
-                                      max_words, s);
-    case 8: return exchange<uint64_t>(src, dst, bases, me, peers, npeers, e,
-                                      puts, nputs, unpacks, nunpacks,
-                                      max_words, s);
-    case 16: return exchange<uint4>(src, dst, bases, me, peers, npeers, e,
-                                    puts, nputs, unpacks, nunpacks, max_words,
-                                    s);
-    default: return cudaErrorInvalidValue;
-  }
+        int64_t word_bytes, void* stream, int* launched) {
+  *launched = 0;
+  return with_word(word_bytes, [&](auto w) {
+    return exchange<decltype(w)>(src, dst, bases, me, peers, npeers, e, puts,
+                                 nputs, unpacks, nunpacks, max_words,
+                                 static_cast<cudaStream_t>(stream), launched);
+  });
 }
 
 }  // namespace
@@ -249,19 +298,33 @@ int run(const void* src, void* dst, const void* bases, int me,
 // One exchange, e = `exchange_index`, the count of earlier exchanges on this
 // workspace.  `puts` and `unpacks` are device tables of moves (rows of 8
 // int64, see kMoveFields); `max_words` is the largest move in words of
-// `word_bytes` bytes.
+// `word_bytes` bytes.  *launched: the kernels the call launched.
 
-// K2 (and K2s at P = 1): `blocks` to the peers' receive regions, this
-// rank's region to `out`.
+// K2 over P > 1 ranks: the self block to `out`, the others to the peers'
+// receive regions; the received blocks to `out`.
 extern "C" int cudecomp_peer_a2a(const void* blocks, void* out,
                                  const void* bases, int me, const int* peers,
                                  int npeers, uint64_t exchange_index,
                                  const void* puts, int nputs,
                                  const void* unpacks, int nunpacks,
                                  int64_t max_words, int64_t word_bytes,
-                                 void* stream) {
+                                 void* stream, int* launched) {
   return run(blocks, out, bases, me, peers, npeers, exchange_index, puts,
-             nputs, unpacks, nunpacks, max_words, word_bytes, stream);
+             nputs, unpacks, nunpacks, max_words, word_bytes, stream,
+             launched);
+}
+
+// K2 at P = 1 (K2s's program): one launch, `words` words of `word_bytes`
+// bytes from `blocks` to `out`; no barrier, no workspace.
+extern "C" int cudecomp_peer_copy(const void* blocks, void* out,
+                                  int64_t words, int64_t word_bytes,
+                                  void* stream, int* launched) {
+  *launched = 0;
+  if (words <= 0) return cudaSuccess;
+  return with_word(word_bytes, [&](auto w) {
+    return copy<decltype(w)>(blocks, out, words,
+                             static_cast<cudaStream_t>(stream), launched);
+  });
 }
 
 // K3: one halo update of one dim of `buf`, in place.
@@ -270,7 +333,8 @@ extern "C" int cudecomp_peer_halo(void* buf, const void* bases, int me,
                                   uint64_t exchange_index, const void* puts,
                                   int nputs, const void* unpacks,
                                   int nunpacks, int64_t max_words,
-                                  int64_t word_bytes, void* stream) {
+                                  int64_t word_bytes, void* stream,
+                                  int* launched) {
   return run(buf, buf, bases, me, peers, npeers, exchange_index, puts, nputs,
-             unpacks, nunpacks, max_words, word_bytes, stream);
+             unpacks, nunpacks, max_words, word_bytes, stream, launched);
 }

@@ -13,12 +13,13 @@ refuses to rendezvous ranks on one device unless
 the process has not.  A workspace holds
 
   * a signal pad of one 8-byte slot per group rank (its first
-    ``PAD_BYTES``), written by the kernels' barrier (``csrc/peer_sync.cuh``);
+    ``PAD_BYTES``), written by the kernels' barrier (``csrc/peer.cu``);
   * the receive region, after the pad;
   * ``bases_dev``: a device array of the group's buffer addresses as this
     rank maps them, indexed by group rank (this rank's own at its rank);
-  * ``tables``: the device tables of the plans run on it
-    (``ops/peer_kernels.py``), which go when the workspace goes.
+  * ``launches``: the plans run on it, made ready to launch
+    (``ops/peer_kernels.py``: their device tables and ctypes arguments),
+    which go when the workspace goes.
 
 The library only allocates and maps; the barrier, the puts and the signals
 are the kernels' own code (no ``barrier()`` of the handle, no
@@ -39,8 +40,8 @@ from typing import Dict, Tuple
 import torch
 import torch.distributed as dist
 
-PAD_BYTES = 4096      # csrc/peer_sync.cuh: kPadBytes
-MAX_RANKS = 64        # csrc/peer_sync.cuh: kMaxPeers
+PAD_BYTES = 4096      # csrc/peer.cu: kPadBytes
+MAX_RANKS = 64        # csrc/peer.cu: kMaxPeers
 GROW_ALIGN = 1 << 20  # receive regions grow in whole MiB
 OVERLAP_ENV = "TORCH_SYMM_MEM_ALLOW_OVERLAPPING_DEVICES"
 
@@ -61,7 +62,7 @@ class Workspace:
                              f"the group has {self.size}")
         self.recv_bytes = recv_bytes
         self.exchanges = 0
-        self.tables = {}
+        self.launches = {}
         os.environ.setdefault(OVERLAP_ENV, "1")
         nbytes = PAD_BYTES + recv_bytes
         self._buf = symm_mem.empty(nbytes, dtype=torch.uint8, device=device)
@@ -69,7 +70,7 @@ class Workspace:
         if self._handle.rank != self.rank:
             raise RuntimeError(f"symmetric memory ranks this process "
                                f"{self._handle.rank}, the group {self.rank}")
-        # the pad starts at 0 (csrc/peer_sync.cuh), zeroed through the view
+        # the pad starts at 0 (csrc/peer.cu), zeroed through the view
         # the peers address; no rank signals before every rank has zeroed
         self._handle.get_buffer(self.rank, (PAD_BYTES,), torch.uint8).zero_()
         self.bases_dev = torch.tensor(
@@ -90,7 +91,7 @@ class Workspace:
         torch.cuda.synchronize(self.device)
         dist.barrier(group=self.group)
         self._handle = self._buf = self.bases_dev = None
-        self.tables.clear()
+        self.launches.clear()
 
 
 _WORKSPACES: Dict[Tuple[str, int], Workspace] = {}

@@ -455,6 +455,59 @@ def check_peer_kernels(device, gdims=(66, 70, 74), seed=0) -> dict:
             "K3": PK.halo_launch_count - halo0}
 
 
+def check_workspace_growth(device, seed=0) -> None:
+    """In one rank of a gloo world whose W ranks share ``device``: K2 over
+    the world on small blocks, then on blocks whose W-1 receive slots
+    exceed the first workspace, each bit-equal to ``exchange_all_to_all``
+    of CPU copies.  The second exchange grows the world's workspace: a new
+    one with the larger receive region, its exchange count started at 0
+    and only the second plan's launch record in it; the old one is
+    released.  Each exchange is four CUDA launches, as the C entry reports
+    them.  Raises AssertionError on a difference."""
+    import torch.distributed as dist
+
+    from cudecomp_tpu_torch.ops import peer_kernels as PK
+    from cudecomp_tpu_torch.parallel import collectives, symmetric
+
+    W, rank = dist.get_world_size(), dist.get_rank()
+    if W < 2:
+        raise ValueError("a workspace grows over two ranks or more")
+    gen = torch.Generator().manual_seed(seed * 1000 + rank + 1)
+    seen, cuda0 = [], PK.a2a_cuda_launch_count
+    for cols in (64, symmetric.GROW_ALIGN // 4 // (W - 1) + 1):
+        blocks = torch.randn((W, cols), generator=gen, dtype=torch.float32)
+        got = PK.a2a(blocks.to(device), None)
+        want = collectives.exchange_all_to_all(blocks, None, W, 1)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"K2 over the world of {cols} columns "
+                                 f"differs from its plain version on rank "
+                                 f"{rank}")
+        seen.append((symmetric.workspace(None, got.device, 0), 4 * cols))
+    (small, bb_small), (grown, bb) = seen
+    need = -(-(W - 1) * bb // symmetric.GROW_ALIGN) * symmetric.GROW_ALIGN
+    facts = {
+        "a new workspace": grown is not small,
+        "the old one released": small.bases_dev is None
+        and not small.launches,
+        "the first one too small for the second exchange":
+            (W - 1) * bb_small <= small.recv_bytes < (W - 1) * bb,
+        f"a receive region of {need} bytes": grown.recv_bytes == need,
+        "its exchanges counted from 0": grown.exchanges == 1,
+        "only the new plan's launch record":
+            [k[0] for k in grown.launches] == [("a2a", bb)],
+        "four CUDA launches per exchange":
+            PK.a2a_cuda_launch_count - cuda0 == 8,
+    }
+    failed = [k for k, ok in facts.items() if not ok]
+    if failed:
+        raise AssertionError(f"rank {rank}: K2's workspace growth fails "
+                             f"{failed} (recv_bytes {small.recv_bytes} -> "
+                             f"{grown.recv_bytes}, exchanges "
+                             f"{grown.exchanges}, launches "
+                             f"{list(grown.launches)}, CUDA launches "
+                             f"{PK.a2a_cuda_launch_count - cuda0})")
+
+
 def card_ranks_worker(rank: int, world: int, init_file: str, body,
                       *args) -> None:
     """One of ``world`` ranks that share ``cuda:0`` over a gloo world joined
@@ -480,9 +533,10 @@ def card_ranks_worker(rank: int, world: int, init_file: str, body,
 
 
 def check_peer_ranks(rank: int, gdims=(10, 12, 14)) -> None:
-    """A :func:`card_ranks_worker` body: :func:`check_peer_kernels` on
-    ``cuda:0``."""
+    """A :func:`card_ranks_worker` body: :func:`check_peer_kernels` and
+    :func:`check_workspace_growth` on ``cuda:0``."""
     check_peer_kernels(torch.device("cuda", 0), gdims)
+    check_workspace_growth(torch.device("cuda", 0))
 
 
 def run_card_ranks(body, world: int, init_file: str, args, timeout: float,

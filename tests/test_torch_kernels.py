@@ -535,17 +535,23 @@ def test_gpu_stencil_path_launches_k4_once(cuda, periods):
 @pytest.mark.gpu
 @pytest.mark.parametrize("inverse", [False, True])
 def test_gpu_dft2_matches_ref(cuda, inverse):
+    # every kernel instance: N1 = 8 M with M = 1, 2, 4, 8 or not a power of
+    # two (3, 25), N1 = 16 M with M = 8, 16; B = N2 / 16 of 8 or 16;
+    # clusters of 1, 2, 4, 8
     from cudecomp_tpu_torch.ops import dft2 as D
-    for shape in ((16, 8, 128), (3, 8, 128), (5, 24, 256), (2, 256, 256),
-                  (4, 7, 33), (1, 400, 64)):  # 400: a tile over 48 KB
+    for shape in ((16, 8, 128), (3, 16, 256), (4, 32, 128), (2, 64, 256),
+                  (2, 128, 128), (1, 256, 128), (2, 256, 256), (3, 24, 128),
+                  (5, 200, 256)):
         x = _cuda_field(shape, torch.complex64, cuda)
         before = D.launch_count
         got = D.dft2(x, inverse)
         torch.cuda.synchronize()
         assert D.launch_count == before + 1
-        want = D.dft2_ref(x, inverse)
-        err = float((got - want).abs().max())
-        assert err <= 1e-5 * float(want.abs().max()), (shape, err)
+        for want in (D.dft2_ref(x, inverse),
+                     (torch.fft.ifftn if inverse else torch.fft.fftn)(
+                         x.to(torch.complex128), dim=(1, 2))):
+            err = float((got.to(want.dtype) - want).abs().max())
+            assert err <= 1e-5 * float(want.abs().max()), (shape, err)
 
 
 @pytest.mark.gpu
@@ -556,11 +562,20 @@ def test_gpu_dft2_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         D.dft2(torch.zeros(2, 128, 8, device=cuda,
                            dtype=torch.complex64).transpose(1, 2))
-    # the C entry refuses these; the wrapper raises with its error
+    # shapes outside the gate: no plan, no launch
     before = D.launch_count
-    for shape in ((2, 8, 512), (1, 2048, 128)):  # N2 > 256; tile > 227 KB
-        with pytest.raises(RuntimeError, match="N2 <= 256"):
+    for shape in ((2, 8, 512), (1, 2048, 128), (1, 12, 128), (1, 8, 64)):
+        with pytest.raises(ValueError, match="K5 takes planes"):
             D.dft2(torch.zeros(shape, device=cuda, dtype=torch.complex64))
+    # the C entry refuses a layout it cannot hold; the wrapper raises
+    lib = D._lib()
+    x = torch.zeros((1, 256, 256), device=cuda, dtype=torch.complex64)
+    tw = D.twiddles(256, x.dtype, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for cluster, chunk in ((1, 16), (3, 16), (8, 48), (16, 16)):
+        assert lib.cudecomp_dft2(x.data_ptr(), x.data_ptr(), tw.data_ptr(),
+                                 tw.data_ptr(), 1, 256, 256, cluster, chunk,
+                                 0, 1.0, stream) != 0
     assert D.launch_count == before
 
 
@@ -583,6 +598,25 @@ def test_gpu_spectral_poisson_launches_k5_twice(cuda, monkeypatch):
         want.abs().max())
 
 
+@pytest.mark.gpu
+def test_gpu_dft2_smem_bytes_match_the_plan(cuda):
+    # dft2_plan picks K5's layout with the Python smem_bytes; the launch
+    # sizes its shared memory with the C one: the two agree on every layout
+    # of every gate shape
+    from cudecomp_tpu_torch.ops import dft2 as D
+    lib = D._lib()
+    for n1 in range(8, 257, 8):
+        for n2 in (128, 256):
+            for cluster in D.CLUSTERS:
+                for chunk in D.CHUNKS:
+                    assert lib.cudecomp_dft2_smem_bytes(
+                        n1, n2, cluster, chunk) == D.smem_bytes(
+                        n1, n2, cluster, chunk), (n1, n2, cluster, chunk)
+            plan = D.dft2_plan(n1, n2)
+            assert lib.cudecomp_dft2_smem_bytes(
+                n1, n2, plan.cluster, plan.chunk) == plan.smem
+
+
 # -- K2, K2s and K3 on the card ------------------------------------------------
 
 @pytest.mark.gpu
@@ -595,18 +629,18 @@ def test_gpu_a2a_smoke_is_bit_equal(cuda, tmp_path):
                             rank=0, world_size=1)
     try:
         before = PK.a2a_launch_count
+        cuda_before = PK.a2a_cuda_launch_count
         assert PK.a2a_smoke(1024, device=cuda) is True
         assert PK.a2a_launch_count == before + 1
         for n in (1, 3, 1024):  # odd byte counts move in narrower words
             x = torch.arange(n * 7, device=cuda).to(torch.uint8)
             assert torch.equal(PK.a2a(x, None), x)
-        ws = symmetric.workspace(None, x.device, 1)
-        x = torch.randn(3 << 18, device=cuda)  # 3 MiB: the workspace grows
+            assert torch.equal(PK.a2a(x[1:], None), x[1:])  # 1 byte off
+        x = torch.randn(3 << 18, device=cuda)  # 3 MiB
         assert torch.equal(PK.a2a(x, None), x)
-        grown = symmetric.workspace(None, x.device, 1)
-        assert grown is not ws and grown.recv_bytes == 3 << 20
-        assert grown.exchanges == 1  # a new workspace counts from 0
-        symmetric.release_workspaces()
+        # one CUDA launch per exchange at P = 1, and no workspace
+        assert PK.a2a_cuda_launch_count - cuda_before == 8
+        assert not symmetric._WORKSPACES
     finally:
         dist.destroy_process_group()
 
@@ -615,7 +649,9 @@ def test_gpu_a2a_smoke_is_bit_equal(cuda, tmp_path):
 def test_gpu_two_ranks_share_the_card_for_k2_and_k3(cuda, tmp_path):
     # two processes on cuda:0 over gloo: K2 (twice in a row, and in the
     # PALLAS_A2A transposes) and K3 (HaloMethod.PALLAS, periodic and not)
-    # bit-equal to their plain versions on CPU copies
+    # bit-equal to their plain versions on CPU copies; then K2 on blocks
+    # that outgrow the workspace, which is replaced by a new one of the
+    # larger size whose exchanges count from 0 (check_workspace_growth)
     from cudecomp_tpu_torch.utils.testing import (check_peer_ranks,
                                                   run_card_ranks)
     run_card_ranks(check_peer_ranks, 2, str(tmp_path / "pg"), (), 240,
@@ -639,7 +675,8 @@ def test_gpu_kernel_exchanges_never_take_their_plain_version(cuda,
         cudecomp_cuda_error_string=lambda e: b"an illegal memory access")
     ws = types.SimpleNamespace(rank=0, size=2, next_exchange=lambda: 0,
                                bases_dev=torch.zeros(2, dtype=torch.int64,
-                                                     device=cuda), tables={})
+                                                     device=cuda),
+                               device=torch.device(cuda), launches={})
     monkeypatch.setattr(collectives, "exchange_all_to_all", plain)
     monkeypatch.setattr(H, "halo_ring", plain)
     monkeypatch.setattr(PK, "_lib", lambda: fail)

@@ -10,6 +10,7 @@ exchange over a gloo group run in the 4-rank spawn of
 ``test_torch_slice.py`` (``kind="peer"``).
 """
 
+import contextlib
 import types
 
 import numpy as np
@@ -40,7 +41,8 @@ def _split(host, n, dim):
             for c in np.split(host, n, axis=dim)]
 
 
-@pytest.mark.parametrize("n,B,cols", [(2, 4, 5), (3, 2, 7), (4, 3, 1)])
+@pytest.mark.parametrize("n,B,cols", [(1, 5, 3), (2, 4, 5), (3, 2, 7),
+                                      (4, 3, 1)])
 def test_a2a_plan_matches_pallas_a2a(n, B, cols):
     from cudecomp_tpu.ops.pallas_kernels import exchange_pallas_a2a
     rng = np.random.default_rng(n)
@@ -51,6 +53,8 @@ def test_a2a_plan_matches_pallas_a2a(n, B, cols):
     srcs = _split(host, n, 0)
     bb = B * cols * 4
     plans = [PK.a2a_plan(n, r, bb) for r in range(n)]
+    # the self block goes straight to the output: P-1 receive slots
+    assert all(p.recv_bytes == (n - 1) * bb for p in plans)
     outs = PK.apply_plans(plans, srcs, [torch.empty_like(s) for s in srcs])
     np.testing.assert_array_equal(torch.cat(outs).numpy(), want)
 
@@ -83,17 +87,25 @@ def test_halo_plan_matches_pallas_halo(n, h, m, splits, shape, i_d,
 
 
 def test_plans_cover_their_regions_once():
-    # K2: the puts of all ranks tile every receive region exactly once; K3:
-    # the unpacks write exactly the halo planes, and each put lands in a
-    # slot of the neighbour that unpacks it into the facing halo
+    # K2: the peers' puts tile every receive region of P-1 slots exactly
+    # once, each rank's self block goes to its own output block, and the
+    # unpacks copy the slots out around it; K3: the unpacks write exactly
+    # the halo planes, and each put lands in a slot of the neighbour that
+    # unpacks it into the facing halo
     for P in (1, 2, 3, 5):
         bb = 24
         plans = [PK.a2a_plan(P, r, bb) for r in range(P)]
-        for q in range(P):
-            dsts = sorted(mv.dst for p in plans for mv in p.puts
+        for q, p in enumerate(plans):
+            dsts = sorted(mv.dst for o in plans for mv in o.puts
                           if mv.peer == q)
-            assert dsts == [r * bb for r in range(P)]
-        assert all(p.peers == tuple(range(P)) for p in plans)
+            assert dsts == [r * bb for r in range(P - 1)]
+            own = [mv for mv in p.puts if mv.peer == PK.OWN]
+            assert [(mv.src, mv.dst, mv.row_bytes) for mv in own] == [
+                (q * bb, q * bb, bb)]
+            out = sorted((mv.dst, mv.dst + mv.row_bytes) for mv in p.unpacks)
+            assert out == [(a, b) for a, b in ((0, q * bb),
+                                               ((q + 1) * bb, P * bb)) if b > a]
+            assert p.peers == (tuple(range(P)) if P > 1 else ())
     splits, h, m = (4, 3, 3), 1, 4
     for periodic in (True, False):
         plans = [PK.halo_plan((2, m + 2 * h, 3), 4, 1, h, m, splits, r,
@@ -178,18 +190,74 @@ def test_off_the_cpu_the_exchanges_are_the_kernels(monkeypatch):
         PK.halo_exchange(torch.empty((4, 6)), object(), 1, 1, 4, (4, 4), True)
 
 
+def _fake_workspace(rank=0, size=2, device="cpu"):
+    ws = symmetric.Workspace.__new__(symmetric.Workspace)
+    ws.device, ws.group, ws.launches = torch.device(device), None, {}
+    ws.rank, ws.size, ws.exchanges = rank, size, 0
+    ws.bases_dev = torch.zeros(size, dtype=torch.int64)
+    return ws
+
+
 def test_release_drops_the_workspace_tables(monkeypatch):
-    # a workspace keeps the device tables of the plans run on it, and they
-    # go when it is released
+    # a workspace keeps the plans run on it, made ready to launch with their
+    # device tables, and they go when it is released
     monkeypatch.setattr(symmetric.torch.cuda, "synchronize", lambda d: None)
     monkeypatch.setattr(symmetric.dist, "barrier", lambda group: None)
-    ws = symmetric.Workspace.__new__(symmetric.Workspace)
-    ws.device, ws.group, ws.tables = torch.device("cuda", 0), None, {}
+    ws = _fake_workspace(device="cuda:0")
+    ws.device = torch.device("cpu")  # the tables, made on the CPU here
     plan = PK.a2a_plan(2, 0, 16)
-    ws.tables[plan] = PK.move_tables(plan, 0, "cpu")
+    ws.launches[("a2a", 16), 16] = PK._prepare(plan, ws, 16)
+    ws.device = torch.device("cuda", 0)
     symmetric._WORKSPACES[("test", 0)] = ws
     symmetric.release_workspaces()
-    assert ws.tables == {} and not symmetric._WORKSPACES
+    assert ws.launches == {} and not symmetric._WORKSPACES
+
+
+@pytest.mark.parametrize("P,me", [(2, 0), (2, 1), (4, 2)])
+def test_a2a_launch_is_prepared_once_per_plan(P, me):
+    # what one K2 exchange passes to the C entry besides the tensors, the
+    # epoch and the stream: the workspace bases, the rank, the peer set,
+    # the two device tables with their lengths, the largest move in words
+    # and the word size
+    ws = _fake_workspace(me, P)
+    bb = 3 * 1024
+    plan = PK.a2a_plan(P, me, bb)
+    launch = PK._prepare(plan, ws, 16)
+    bases, rank, peers, npeers = launch.head
+    assert (bases, rank, list(peers), npeers) == (
+        ws.bases_dev.data_ptr(), me, list(range(P)), P)
+    puts, nputs, unpacks, nunpacks, max_words, wb = launch.tail
+    assert (puts, unpacks) == tuple(t.data_ptr() for t in launch.tables)
+    assert (nputs, nunpacks) == (P, len(plan.unpacks))
+    assert wb == 16 and max_words == max(me, P - 1 - me, 1) * bb // 16
+    assert PK._prepare(plan, ws, 4).tail[-1] == 4  # a 4-byte aligned tensor
+    assert PK._alignment(256, 512 + 8) == 8 and PK._alignment(64) == 16
+
+
+def test_launch_returns_the_launches_its_entry_reports(monkeypatch):
+    # the CUDA launch count is what the C entry writes to its out-argument,
+    # not a number the wrapper derives from the plan
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        args[-1]._obj.value = 3
+        return 0
+
+    monkeypatch.setattr(PK, "_lib", lambda: types.SimpleNamespace(
+        cudecomp_peer_a2a=entry))
+    monkeypatch.setattr(PK.torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(PK.torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    ws = _fake_workspace(0, 2)
+    blocks = torch.zeros(8)
+    out = torch.empty_like(blocks)
+    for _ in range(2):
+        assert PK._launch("cudecomp_peer_a2a", "K2", (blocks, out),
+                          ("a2a", 16), lambda: PK.a2a_plan(2, 0, 16), ws) == 3
+    assert len(ws.launches) == 1 and ws.exchanges == 2
+    assert [c[6] for c in calls] == [0, 1]  # the epochs
 
 
 def test_gloo_refuses_tensors_off_the_cpu(monkeypatch):
