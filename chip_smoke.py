@@ -13,10 +13,17 @@ Phases, each of which raises on failure (nothing is caught):
   3. K1 against its plain twin, bit for bit: bf16/f32/f64/c64/c128, both
      cyclic perms, ragged and degenerate shapes, and the 512^3 c64 shapes
      of the FFT path;
-  4. K4 against its plain version (stencil27_ref): f32 and f64, 7-tap and
-     dense 27-tap weights, periodic / non-periodic / mixed edges, both
-     input modes, ragged shapes and the 512^3 f32 path shape; max abs
-     difference <= 1e-6 (f32) or 1e-14 (f64) times sum|w| * max|input|;
+  4. K4 against its plain version (stencil27_ref): f32, f64, bf16 and
+     f16, 7-tap and dense 27-tap weights (the face and the dense
+     instance), valid mode and ghost-plane mode with periodic,
+     non-periodic and mixed (x ghost) edges, on ragged shapes whose
+     extents are no multiples of K4's 64 x 16 tile (so wrapped and ghost
+     cells land at tile edges in y and z), and the 512^3 f32 path shape,
+     each by the loader its plan picks and, where that is TMA, once more
+     by cp.async; max abs difference <= 1e-6
+     (f32), 1e-14 (f64), 8e-3 (bf16) or 1e-3 (f16) times sum|w| *
+     max|input| (the 2-byte types against stencil27_ref's float32 sum
+     rounded once: one unit in the last place);
      K5 against its plain version (dft2_ref) and against complex128
      torch.fft.fftn over dims (1, 2), forward and inverse, on shapes that
      take every branch and cluster size: (129, 256, 256), (256, 256, 256),
@@ -49,11 +56,12 @@ Phases, each of which raises on failure (nothing is caught):
      steps to t = 0.5, energy and dissipation at t = 0.1 ... 0.5 within
      1e-4 of docs/tg_validation_n256.csv (the JAX package's f32 curve);
   8. timing: the FFT round trip (ms per direction, GFLOPS), K1's bandwidth
-     beside clone() and its plain twin; the diffusion step, K4 beside the
-     conv3d yardstick and its plain version, the halo update and the CG
-     iteration; K5 at (129, 256, 256) beside its bound, dft2_ref, cuFFT
-     and clone() of the same bytes (GB/s), with the cluster size it
-     launches; the Poisson solve with K5 on and off, the Taylor-Green step
+     beside clone() and its plain twin; the diffusion step, K4 for the 7-tap
+     and the dense 27-tap set in wrap mode beside its bound, clone(), the
+     conv3d yardstick and its plain version, with the instance that ran
+     and its registers and spills, the halo update and the CG iteration;
+     K5 at (129, 256, 256) beside its bound, dft2_ref, cuFFT and clone()
+     of the same bytes (GB/s), with the cluster size it launches; the Poisson solve with K5 on and off, the Taylor-Green step
      and the projection-solver step; torch.profiler breakdowns by kernel, with
      the card's idle share, of one FFT round trip, one diffusion step, one
      CG chunk, one Taylor-Green step and one K5 Poisson solve;
@@ -101,7 +109,9 @@ from statistics import mean
 
 RTOL_FFT = 1e-5      # relative L2 error of the c64 forward spectrum
 GATE = 5e-4          # round-trip max abs error (benchmark.cu:23-27)
-K4_EPS = {"float32": 1e-6, "float64": 1e-14}  # x sum|w| x max|input|
+# x sum|w| x max|input|; 2-byte types: one unit in the last place
+K4_EPS = {"float32": 1e-6, "float64": 1e-14, "bfloat16": 8e-3,
+          "float16": 1e-3}
 RTOL_DIFFUSION = 1e-6  # rel L2 of the diffusion step against plain rolls
 CG_N, CG_TOL, CG_GATE = 256, 1e-5, 2e-5
 N = 512
@@ -337,7 +347,8 @@ def k4_weights(kind, seed=0):
 
 def stencil_kernel_checks(torch, S, gen):
     """Phase 4: K4 vs stencil27_ref; returns the largest absolute
-    difference and the largest difference over its tolerance."""
+    difference per dtype, the largest difference over its tolerance, and
+    the (dtype, instance, loader) layouts that ran."""
     import numpy as np
     dev = DEVICE
 
@@ -354,12 +365,18 @@ def stencil_kernel_checks(torch, S, gen):
                                              rand(shape, u.dtype)))
         return out
 
-    worst, worst_ratio = 0.0, 0.0
+    worst, worst_ratio, layouts = {}, 0.0, set()
     periods = {"periodic": (True, True, True),
                "non-periodic": (False, False, False),
                "mixed": (False, True, True)}  # x ghost, y and z wrap
-    cases = [(dt, shape) for dt in (torch.float32, torch.float64)
-             for shape in ((7, 33, 65), (1, 5, 3), (2, 2, 2), (64, 32, 96))]
+    # ragged against the 64 (z) x 16 (y) tile; rows of 16-byte multiples
+    # take TMA (z extents 200, 128 and 96 in ghost-plane mode, 2 and 62 in
+    # valid mode, whose rows are two cells longer), the others cp.async
+    shapes = ((7, 33, 65), (1, 5, 3), (2, 2, 2), (64, 32, 96), (5, 40, 200),
+              (3, 17, 128), (4, 20, 62))
+    cases = [(dt, shape) for dt in (torch.float32, torch.float64,
+                                    torch.bfloat16, torch.float16)
+             for shape in shapes]
     cases.append((torch.float32, (N, N, N)))
     for dtype, shape in cases:
         for wkind in ("face7", "dense"):
@@ -369,22 +386,35 @@ def stencil_kernel_checks(torch, S, gen):
             runs += [(name, u, ghosts_for(u, wrap))
                      for name, wrap in periods.items()]
             for mode, x, ghosts in runs:
-                got = S.stencil27(x, w, ghosts)
                 want = S.stencil27_ref(x, w, ghosts)
+                plan = S.stencil_plan(w, ghosts is None, 0, dtype,
+                                      want.shape)
                 inputs = [x] + [p for g in (ghosts or ()) if g for p in g]
                 scale = float(np.abs(w).sum()) * max(
                     float(t.abs().max()) for t in inputs)
-                tol = K4_EPS[str(dtype).split(".")[1]] * scale
-                err = float((got - want).abs().max())
-                if got.shape != want.shape or not err <= tol:
-                    raise AssertionError(
-                        f"K4 differs from stencil27_ref: {dtype} {shape} "
-                        f"{wkind} {mode}: {err} > {tol}")
-                worst = max(worst, err)
-                worst_ratio = max(worst_ratio, err / tol)
-                del got, want
+                name = str(dtype).split(".")[1]
+                tol = K4_EPS[name] * scale
+                # the plan's layout, and a TMA case again by cp.async
+                plans = [plan] + ([plan._replace(loader="cp.async")]
+                                  if plan.loader == "tma" else [])
+                for p in plans:
+                    got = S.stencil27(x, w, ghosts, plan=p)
+                    layouts.add((name, p.instance, p.loader))
+                    err = float((got.double() - want.double()).abs().max())
+                    if got.shape != want.shape or not err <= tol:
+                        raise AssertionError(
+                            f"K4 differs from stencil27_ref: {dtype} {shape} "
+                            f"{wkind} {mode} {p.loader}: {err} > {tol}")
+                    worst[name] = max(worst.get(name, 0.0), err)
+                    worst_ratio = max(worst_ratio, err / tol)
+                    del got
+                del want
     torch.cuda.synchronize()
-    return worst, worst_ratio
+    want = {(str(dt).split(".")[1], i, ld) for dt in S.KERNEL_DTYPES
+            for i in ("face", "dense") for ld in ("tma", "cp.async")}
+    if layouts != want:
+        raise AssertionError(f"phase 4 skipped K4 layouts: {want - layouts}")
+    return worst, worst_ratio, layouts
 
 
 def plain_stencil(torch, u, w):
@@ -498,44 +528,61 @@ def stencil_path(torch, ct, S, K, D, cb):
     return res
 
 
+def k4_instance(ptxas, plan, dtype="f", valid=False):
+    """ptxas's registers and spills of the K4 kernel instance ``plan``
+    launches (``cuda_build.ptxas_report`` lines of csrc/stencil27.cu)."""
+    tag = (f"stencil27_kernelI{dtype}Lb{int(valid)}"
+           f"ELb{int(plan.instance == 'face')}E")
+    return next((info for name, info in ptxas if tag in name), "not found")
+
+
 def stencil_timing(torch, ct, S, perf, gen):
-    """Phase 7b: the 27-tap stencil at 512^3 f32: K4 (through the public
-    entry point and alone), its plain version, the conv3d yardstick;
-    clone() of the same bytes.  ms per call, means over trials."""
+    """Phase 8: K4 at 512^3 f32 in wrap mode for the 7-tap and the dense
+    27-tap set (the dense one also through the public entry point), its
+    plain version, the conv3d yardstick; clone() of the same bytes.  ms
+    per call, means over trials; the dense set's numbers at the top level,
+    the 7-tap set's under "face7"."""
     import numpy as np
     import torch.nn.functional as F
     grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(1, 1)), DEVICE)
     u = torch.randn((N, N, N), generator=gen, device=DEVICE)
-    w = k4_weights("dense", seed=5)
     ghosts = (None, None, None)
 
     def t(fn, iters=10):
         return mean(perf.time_fn(fn, n_warmup=2, n_trials=5,
                                  iters=iters)) * 1e3
 
-    # plain, kernel, kernel, plain: drift shows as disagreeing pairs
-    runs = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = (S.stencil27_ref if name == "plain" else S.stencil27)
-        runs[name].append(t(lambda: fn(u, w, ghosts), 3 if name == "plain"
-                            else 10))
-    out = {k: mean(v) for k, v in runs.items()}
-    out["runs_ms"] = runs
-    out["apply_ms"] = t(lambda: ct.stencil_apply(grid, u, w))
     # the yardstick: cuDNN conv3d of the circularly padded field, in full
     # float32 (TF32 off); the pad is a separate pass, not timed
     torch.backends.cudnn.allow_tf32 = False
     padded = F.pad(u[None, None], (1, 1, 1, 1, 1, 1), mode="circular")
-    kern = torch.tensor(w, dtype=torch.float32, device=DEVICE)[None, None]
-    conv = F.conv3d(padded, kern)[0, 0]
-    out["conv_err"] = float((conv - S.stencil27(u, w, ghosts)).abs().max())
-    del conv
-    out["conv_ms"] = t(lambda: F.conv3d(padded, kern))
+    out = {}
+    for kind in ("face7", "dense"):
+        w = k4_weights(kind, seed=5)
+        # plain, kernel, kernel, plain: drift shows as disagreeing pairs
+        runs = {"plain": [], "kernel": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            fn = (S.stencil27_ref if name == "plain" else S.stencil27)
+            runs[name].append(t(lambda: fn(u, w, ghosts),
+                                3 if name == "plain" else 10))
+        res = {k: mean(v) for k, v in runs.items()}
+        res["runs_ms"] = runs
+        res["plan"] = S.stencil_plan(w, False, 7, u.dtype, u.shape)
+        kern = torch.tensor(w, dtype=torch.float32, device=DEVICE)[None, None]
+        conv = F.conv3d(padded, kern)[0, 0]
+        res["conv_err"] = float((conv - S.stencil27(u, w, ghosts)).abs()
+                                .max())
+        del conv
+        res["conv_ms"] = t(lambda: F.conv3d(padded, kern))
+        res["tol"] = K4_EPS["float32"] * float(np.abs(w).sum()) * float(
+            u.abs().max())
+        out[kind] = res
     del padded
+    out.update(out["dense"])
+    out["apply_ms"] = t(lambda: ct.stencil_apply(grid, u, k4_weights(
+        "dense", seed=5)))
     out["clone_ms"] = t(u.clone)
     out["nbytes"] = 2 * u.numel() * u.element_size()
-    out["tol"] = K4_EPS["float32"] * float(np.abs(w).sum()) * float(
-        u.abs().max())
     return out
 
 
@@ -1047,8 +1094,10 @@ def main() -> int:
     torch.cuda.init()
     t0 = time.perf_counter()
     builds = (K.build, S.build, D.build, PK.build)
-    with ThreadPoolExecutor(len(builds)) as pool:
+    with ThreadPoolExecutor(len(builds) + 1) as pool:
+        ptxas = pool.submit(cb.ptxas_report, S.SOURCES)
         libs = list(pool.map(lambda build: build(), builds))
+        k4_ptxas = ptxas.result()
     print(f"K1, K4, K5 and K2 with K3 built and loaded in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({', '.join(p.name for p in libs)}); K0 probed them "
@@ -1062,9 +1111,11 @@ def main() -> int:
           f"(max abs diff {worst})")
 
     # phase 4: K4 vs its plain version
-    k4_worst, k4_ratio = stencil_kernel_checks(torch, S, gen)
-    print(f"K4 within tolerance of stencil27_ref on every case: max abs "
-          f"diff {k4_worst:.3e}, at most {k4_ratio:.3f} of its tolerance")
+    k4_worst, k4_ratio, k4_layouts = stencil_kernel_checks(torch, S, gen)
+    print(f"K4 within tolerance of stencil27_ref on every case, layouts "
+          f"(dtype, instance, loader) {sorted(k4_layouts)}: max abs diff "
+          f"{ {k: f'{v:.3e}' for k, v in k4_worst.items()} }, at most "
+          f"{k4_ratio:.3f} of its tolerance")
     k5 = dft2_kernel_checks(torch, D, gen)
     print(f"K5 within {K5_EPS} x max|reference| on every case, forward and "
           f"inverse, clusters of {k5['clusters']} blocks: max abs diff to "
@@ -1147,12 +1198,19 @@ def main() -> int:
           f"{diff['gbps']:.0f} GB/s (trials {diff['trials_ms']}); clone() of "
           f"the same 512 MiB {st['clone_ms']:.3f} ms = "
           f"{gbs(st['clone_ms'], nb4):.0f} GB/s")
-    print(f"[{card}] 512^3 f32 27-tap stencil: K4 {st['kernel']:.3f} ms = "
-          f"{gbs(st['kernel'], nb4):.0f} GB/s (stencil_apply "
-          f"{st['apply_ms']:.3f} ms); conv3d (cuDNN, TF32 off, pad not "
-          f"timed) {st['conv_ms']:.3f} ms, max abs diff to K4 "
-          f"{st['conv_err']:.3e}; stencil27_ref {st['plain']:.3f} ms "
-          f"(runs {st['runs_ms']})")
+    for kind in ("face7", "dense"):
+        r = st[kind]
+        print(f"[{card}] 512^3 f32 {kind} stencil, wrap mode: K4 "
+              f"{r['kernel']:.4f} ms = {gbs(r['kernel'], nb4):.0f} GB/s, "
+              f"bound {nb4 * 1e3 / HBM_BYTES_PER_S:.4f} ms (bytes), clone() "
+              f"{st['clone_ms']:.4f} ms; {r['plan'].instance} instance, "
+              f"{r['plan'].loader} loads, x-chunks of {r['plan'].xchunk}, "
+              f"{r['plan'].stages} stages ({r['plan'].smem} B shared), ptxas "
+              f"{k4_instance(k4_ptxas, r['plan'])}; conv3d (cuDNN, TF32 "
+              f"off, pad not timed) {r['conv_ms']:.3f} ms, max abs diff to "
+              f"K4 {r['conv_err']:.3e}; stencil27_ref {r['plain']:.3f} ms "
+              f"(runs {r['runs_ms']})")
+    print(f"[{card}] 512^3 f32 dense stencil_apply {st['apply_ms']:.4f} ms")
     print(f"[{card}] 512^3 f32 update_halos width 1 periodic: "
           f"{halo['value']:.3f} ms = {halo['gbps']:.0f} GB/s of halo slabs "
           f"(trials {halo['trials_ms']})")
@@ -1304,7 +1362,7 @@ def main() -> int:
          "source": "cudecomp_tpu_torch/csrc/stencil27.cu",
          "replaces": "cudecomp_tpu/ops/stencil.py:282",
          "launches": sp["launches"]["K4"],
-         "max_abs_err": k4_worst,
+         "max_abs_err": k4_worst["float32"],
          "ms": st["kernel"],
          "plain_ms": st["plain"],
          "bound_ms": max(nb4 * ms_to_bound,

@@ -128,6 +128,30 @@ def build(name: str, sources: Sequence[str]) -> Path:
     return path
 
 
+def ptxas_report(sources: Sequence[str]) -> list:
+    """``[kernel, info]`` for every kernel of ``sources`` (file names in
+    ``csrc/``), from ``nvcc -Xptxas -v`` with the library's flags: the
+    mangled name, then ptxas's register, spill and stack lines joined."""
+    import re
+    import tempfile
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in _sources(sources):
+            res = subprocess.run(
+                [str(nvcc_path()), *flags, "-Xptxas", "-v", "-c", "-o",
+                 str(Path(tmp) / "k.o"), str(src)],
+                capture_output=True, text=True, check=True)
+            for line in res.stderr.splitlines():
+                m = re.search(r"entry function '(\w+)'", line)
+                if m:
+                    out.append([m.group(1), ""])
+                elif out and ("registers" in line or "spill" in line):
+                    info = line.split(":", 1)[-1].strip()
+                    out[-1][1] = f"{out[-1][1]}; {info}".lstrip("; ")
+    return out
+
+
 def library_sources(sources: Sequence[str]) -> tuple:
     """The sources of a library: K0's file, then the kernel's own."""
     return (PROBE_SOURCE,) + tuple(sources)

@@ -249,16 +249,20 @@ def test_uneven_shards_are_rejected():
 
 def test_kernel_dtype_rule_and_device_dispatch():
     # inspected with meta tensors: a tensor off the CPU goes to the kernel
-    # or raises; the kernel is built for float32 and float64 only
+    # or raises; the kernel is built for float32, float64, bfloat16 and
+    # float16 only
     w = face7()
-    for dtype in (torch.bfloat16, torch.float16, torch.complex64):
-        with pytest.raises(ValueError, match="float32 and float64"):
+    for dtype in (torch.complex64, torch.int32):
+        with pytest.raises(ValueError, match="float32, float64, bfloat16 "
+                                             "and float16"):
             S.stencil27(torch.empty(4, 4, 4, dtype=dtype, device="meta"), w,
                         (None, None, None))
     with pytest.raises(ValueError, match="CUDA tensors"):
         S.stencil27(torch.empty(4, 4, 4, device="meta"), w, (None,) * 3)
     assert S.kernel_elem_bytes(torch.float32) == 4
     assert S.kernel_elem_bytes(torch.float64) == 8
+    assert S.kernel_elem_bytes(torch.bfloat16) == 2
+    assert S.kernel_elem_bytes(torch.float16) == 2
     # the CPU takes the plain version, whatever the dtype
     u = torch.randn(4, 5, 6).to(torch.bfloat16)
     assert S.stencil27(u, w, (None,) * 3).dtype == torch.bfloat16

@@ -1,23 +1,41 @@
-// Two simpler shapes of the 27-point stencil, kept beside K4
-// (cudecomp_tpu_torch/csrc/stencil27.cu) only to be timed against it by
-// tools/k4_variants.py.  The port never calls them.
+// The first design of K4 and two simpler shapes of the 27-point stencil,
+// kept beside K4 (cudecomp_tpu_torch/csrc/stencil27.cu) only to be timed
+// against it by tools/k4_variants.py.  The port never calls them.
 //
-// Both compute what K4 computes, in K4's two input modes (valid mode over
-// the extended block; ghost-plane mode, each dim wrapping or reading its
-// ghost planes, a cell in two ghost planes reading 0), with the taps summed
-// in K4's order, and read the input through L1 with no shared memory and no
-// barrier.  Each is compiled for the face tap set and for the dense one,
-// and a launch picks the smallest that holds the nonzero taps:
+// All three compute what K4 computes, in K4's two input modes (valid mode
+// over the extended block; ghost-plane mode, each dim wrapping or reading
+// its ghost planes, a cell in two ghost planes reading 0), with the taps
+// summed in K4's order, in float or double:
 //
+//   * variant 0 ("pr2"): K4 as it was built first: 32 (z) x 16 (y) tiles
+//     marching along x through chunks of 32 planes, every plane of the tile
+//     and its one-cell ring copied by 4-byte cp.async into a ring of
+//     shared-memory buffers, one __syncthreads() per plane, each plane read
+//     from shared memory for each of the three output planes it serves.
+//     Compiled with one of the macros below, it has one part taken out or
+//     changed, for tools/k4_variants.py --ablate (each ablation but
+//     K4_VEC16 and K4_XCHUNK computes a wrong result: only its time means
+//     something):
+//       K4_NO_FMA   no tap arithmetic: each output is its centre cell;
+//       K4_NO_SYNC  no per-plane __syncthreads();
+//       K4_VEC16    ring rows start 3 cells into a 40-cell row, so the
+//                   tile's interior is 16-byte aligned in shared memory,
+//                   and, when every dim wraps and mz % 32 == 0, it comes in
+//                   as 16-byte copies and only the two ring columns as
+//                   4-byte ones;
+//       K4_XCHUNK=n x-chunks of n planes (0: one chunk of mx);
 //   * variant 1 ("naive"): one thread per output; each tap of the set is a
-//     load, at an offset from the cell's own worked out once per dim (a
-//     cell next to a ghost plane takes a slower general path);
+//     load through L1, at an offset from the cell's own worked out once per
+//     dim (a cell next to a ghost plane takes a slower general path);
 //   * variant 2 ("march"): one thread per (y, z) column of kMarch outputs
 //     along x, keeping the 3x3 neighbourhood of the last three planes in
 //     registers, so each plane's cells are loaded once per column.
 //
+// Variants 1 and 2 are each compiled for the face tap set and for the
+// dense one, and a launch picks the smallest that holds the nonzero taps.
 // Plain C interface for ctypes, as K4's.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -222,6 +240,240 @@ march_kernel(const Args<T> a, const Weights<T> w) {
   }
 }
 
+
+// -- variant 0: the first design of K4 --------------------------------------
+
+namespace pr2 {
+
+constexpr int kTZ = 32;      // tile along z, the contiguous dim: one warp
+constexpr int kRows = 4;     // thread rows: one warp per row
+constexpr int kPer = 4;      // consecutive outputs per thread along y
+constexpr int kTY = kRows * kPer;
+#ifdef K4_XCHUNK
+constexpr int kXChunk = K4_XCHUNK;  // 0: one chunk of mx planes
+#else
+constexpr int kXChunk = 32;
+#endif
+#ifdef K4_VEC16
+constexpr int kZOff = 3;     // z0 - 1 at cell 3: z0 at a 16-byte boundary
+constexpr int kPitch = 40;
+#else
+constexpr int kZOff = 0;
+constexpr int kPitch = kTZ + 2;
+#endif
+template <typename T>
+constexpr int kStages = sizeof(T) == 4 ? 8 : 5;
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? 6 : 2;
+constexpr int kRingY = kTY + 2;
+constexpr int kRingZ = kTZ + 2;
+constexpr int kThreads = kRows * kTZ;
+constexpr int kLoads = (kRingY * kRingZ + kThreads - 1) / kThreads;
+
+enum Kind : int { kBlock, kGyLo, kGyHi, kGzLo, kGzHi, kZero, kNone };
+
+template <typename T, bool kValid>
+__device__ __forceinline__ void plan_slots(const Args<T>& a, int64_t y0,
+                                           int64_t z0, int (&kind)[kLoads],
+                                           int64_t (&off)[kLoads]) {
+  const int tid = threadIdx.y * kTZ + threadIdx.x;
+#pragma unroll
+  for (int l = 0; l < kLoads; ++l) {
+    const int i = tid + l * kThreads;
+    kind[l] = kNone;
+    off[l] = 0;
+    if (i >= kRingY * kRingZ) continue;
+    int64_t y = y0 - 1 + i / kRingZ;
+    int64_t z = z0 - 1 + i % kRingZ;
+    kind[l] = kZero;
+    if (y > a.my || z > a.mz) continue;
+    if constexpr (kValid) {
+      kind[l] = kBlock;
+      off[l] = (y + 1) * (a.mz + 2) + z + 1;
+    } else {
+      const int sy = resolve(y, a.my, a.wrap & 2u);
+      const int sz = resolve(z, a.mz, a.wrap & 4u);
+      if (sy < 0 && sz < 0) {
+        kind[l] = kBlock;
+        off[l] = y * a.mz + z;
+      } else if (sz < 0) {
+        kind[l] = kGyLo + sy;
+        off[l] = z;
+      } else if (sy < 0) {
+        kind[l] = kGzLo + sz;
+        off[l] = y;
+      }
+    }
+  }
+}
+
+template <typename T, bool kValid>
+__device__ __forceinline__ void issue_plane(T (*plane)[kPitch],
+                                            const Args<T>& a, int64_t x,
+                                            int64_t y0, int64_t z0,
+                                            const int (&kind)[kLoads],
+                                            const int64_t (&off)[kLoads]) {
+  const int tid = threadIdx.y * kTZ + threadIdx.x;
+  int sx = -1;
+  const T* base = a.u;
+  if constexpr (kValid) {
+    base = a.u + (x + 1) * (a.my + 2) * (a.mz + 2);
+  } else {
+    sx = resolve(x, a.mx, a.wrap & 1u);
+    base = sx < 0 ? a.u + x * a.my * a.mz : (sx ? a.gx[1] : a.gx[0]);
+  }
+#ifdef K4_VEC16
+  if (!kValid && a.wrap == 7u && a.mz % kTZ == 0 && sizeof(T) == 4) {
+    // 16-byte copies of each ring row's interior, 4-byte ones for its two
+    // ring columns
+    for (int i = tid; i < kRingY * (kTZ / 4 + 2); i += kThreads) {
+      const int r = i / (kTZ / 4 + 2);
+      const int c = i % (kTZ / 4 + 2);
+      int64_t y = y0 - 1 + r;
+      if (y > a.my) continue;  // past the ring: never read
+      resolve(y, a.my, true);
+      if (c < kTZ / 4) {
+        const int64_t z = z0 + 4 * c;
+        if (z < a.mz)
+          __pipeline_memcpy_async(&plane[r][kZOff + 1 + 4 * c],
+                                  base + y * a.mz + z, 16);
+      } else {
+        int64_t z = c == kTZ / 4 ? z0 - 1 : z0 + kTZ;
+        if (z <= a.mz) {
+          resolve(z, a.mz, true);
+          __pipeline_memcpy_async(
+              &plane[r][kZOff + (c == kTZ / 4 ? 0 : kTZ + 1)],
+              base + y * a.mz + z, sizeof(T));
+        }
+      }
+    }
+    return;
+  }
+#endif
+#pragma unroll
+  for (int l = 0; l < kLoads; ++l) {
+    if (kind[l] == kNone) continue;
+    const int i = tid + l * kThreads;
+    T* dst = &plane[i / kRingZ][kZOff + i % kRingZ];
+    const T* src = nullptr;
+    switch (kind[l]) {
+      case kBlock: src = base + off[l]; break;
+      case kGyLo: case kGyHi:
+        if (sx < 0)
+          src = (kind[l] == kGyHi ? a.gy[1] : a.gy[0]) + x * a.mz + off[l];
+        break;
+      case kGzLo: case kGzHi:
+        if (sx < 0)
+          src = (kind[l] == kGzHi ? a.gz[1] : a.gz[0]) + x * a.my + off[l];
+        break;
+      default: break;
+    }
+    if (src) __pipeline_memcpy_async(dst, src, sizeof(T));
+    else *dst = T(0);
+  }
+}
+
+template <typename T, bool kValid>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+stencil27_kernel(const Args<T> a, const Weights<T> w) {
+  __shared__ __align__(16) T planes[kStages<T>][kRingY][kPitch];
+  const int64_t chunk = kXChunk > 0 ? kXChunk : a.mx;
+  const int64_t z0 = static_cast<int64_t>(blockIdx.x) * kTZ;
+  const int64_t y0 = static_cast<int64_t>(blockIdx.y) * kTY;
+  const int64_t x0 = static_cast<int64_t>(blockIdx.z) * chunk;
+  const int64_t x1 = x0 + chunk < a.mx ? x0 + chunk : a.mx;
+  const int ty = threadIdx.y;
+  const int tz = threadIdx.x;
+
+  int kind[kLoads];
+  int64_t off[kLoads];
+  plan_slots<T, kValid>(a, y0, z0, kind, off);
+  constexpr int kAhead = kStages<T> - 3;
+  auto slot = [&](int64_t p) {
+    return static_cast<int>((p - x0 + 1) % kStages<T>);
+  };
+  auto issue = [&](int64_t p) {
+    if (p <= x1)
+      issue_plane<T, kValid>(planes[slot(p)], a, p, y0, z0, kind, off);
+    __pipeline_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < kAhead + 1; ++k) issue(x0 - 1 + k);
+
+  for (int64_t x = x0; x < x1; ++x) {
+    issue(x + kAhead);
+    __pipeline_wait_prior(kAhead - 1);
+#ifndef K4_NO_SYNC
+    __syncthreads();
+#endif
+    T acc[kPer];
+#ifdef K4_NO_FMA
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      acc[q] = planes[slot(x)][ty * kPer + q + 1][kZOff + tz + 1];
+#else
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) acc[q] = T(0);
+#pragma unroll
+    for (int dxi = 0; dxi < 3; ++dxi) {
+      const T(*pl)[kPitch] = planes[slot(x - 1 + dxi)];
+      T col[3][kPer + 2];
+#pragma unroll
+      for (int dzi = 0; dzi < 3; ++dzi) {
+        if (a.taps & (0x49u << (9 * dxi + dzi))) {
+#pragma unroll
+          for (int j = 0; j < kPer + 2; ++j)
+            col[dzi][j] = pl[ty * kPer + j][kZOff + tz + dzi];
+        }
+      }
+#pragma unroll
+      for (int dyi = 0; dyi < 3; ++dyi) {
+#pragma unroll
+        for (int dzi = 0; dzi < 3; ++dzi) {
+          const int t = 9 * dxi + 3 * dyi + dzi;
+          if (a.taps & (1u << t)) {
+            const T wt = w.w[t];
+#pragma unroll
+            for (int q = 0; q < kPer; ++q)
+              acc[q] = madd(wt, col[dzi][q + dyi], acc[q]);
+          }
+        }
+      }
+    }
+#endif
+    const int64_t z = z0 + tz;
+    if (z < a.mz) {
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int64_t y = y0 + ty * kPer + q;
+        if (y < a.my) a.out[(x * a.my + y) * a.mz + z] = acc[q];
+      }
+    }
+  }
+  __pipeline_wait_prior(0);
+}
+
+template <typename T>
+cudaError_t launch(const Args<T>& a, const Weights<T>& w, bool valid,
+                   cudaStream_t stream) {
+  const int64_t chunk = kXChunk > 0 ? kXChunk : a.mx;
+  const int64_t gz = (a.mz + kTZ - 1) / kTZ;
+  const int64_t gy = (a.my + kTY - 1) / kTY;
+  const int64_t gx = (a.mx + chunk - 1) / chunk;
+  if (gz > 2147483647LL || gy > 65535 || gx > 65535)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(gz), static_cast<unsigned>(gy),
+                  static_cast<unsigned>(gx));
+  const dim3 block(kTZ, kRows);
+  if (valid)
+    stencil27_kernel<T, true><<<grid, block, 0, stream>>>(a, w);
+  else
+    stencil27_kernel<T, false><<<grid, block, 0, stream>>>(a, w);
+  return cudaGetLastError();
+}
+
+}  // namespace pr2
+
 template <typename T, bool kDense>
 void launch_variant(int variant, bool valid, dim3 grid, dim3 block,
                     cudaStream_t stream, const Args<T>& a,
@@ -267,6 +519,7 @@ cudaError_t launch(int variant, const void* u, void* out,
       if (!(wrap & (1u << d)) && (!ghosts[2 * d] || !ghosts[2 * d + 1]))
         return cudaErrorInvalidValue;
   }
+  if (variant == 0) return pr2::launch<T>(a, w, valid, stream);
   const int64_t gx = variant == 1 ? mx : (mx + kMarch - 1) / kMarch;
   const int64_t gy = (my + kTY - 1) / kTY;
   const int64_t gz = (mz + kTZ - 1) / kTZ;
@@ -285,7 +538,8 @@ cudaError_t launch(int variant, const void* u, void* out,
 
 }  // namespace
 
-// The arguments of cudecomp_stencil27, after the variant (1 or 2).
+// The first design's arguments of cudecomp_stencil27 (elem_bytes 4 or 8),
+// after the variant (0, 1 or 2).
 extern "C" int k4_variant_stencil27(int variant, const void* u, void* out,
                                     const void* gxlo, const void* gxhi,
                                     const void* gylo, const void* gyhi,

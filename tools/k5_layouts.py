@@ -84,23 +84,11 @@ def ptxas_report() -> list:
     """``(instance, info)`` per kernel of ``csrc/dft2.cu`` from
     ``nvcc -Xptxas -v``: the template arguments and ptxas's lines."""
     from cudecomp_tpu_torch.utils import cuda_build
-    src = cuda_build.CSRC_DIR / "dft2.cu"
-    with tempfile.TemporaryDirectory() as tmp:
-        flags = [f for f in cuda_build.NVCC_FLAGS if f != "-shared"]
-        res = subprocess.run(
-            [str(cuda_build.nvcc_path()), *flags, "-Xptxas", "-v", "-c",
-             "-o", str(Path(tmp) / "dft2.o"), str(src)],
-            capture_output=True, text=True, check=True)
-    out, name = [], None
-    for line in res.stderr.splitlines():
-        m = re.search(r"entry function '(\w+)'", line)
-        if m:
-            t = re.search(r"dft2_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
-                          m.group(1))
-            name = (f"<N2={t.group(1)}, A={t.group(2)}, M={t.group(3)}>"
-                    if t else m.group(1))
-        elif name and ("registers" in line or "spill" in line):
-            out.append((name, line.split(":", 1)[-1].strip()))
+    out = []
+    for name, info in cuda_build.ptxas_report(("dft2.cu",)):
+        t = re.search(r"dft2_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        out.append((f"<N2={t.group(1)}, A={t.group(2)}, M={t.group(3)}>"
+                    if t else name, info))
     return out
 
 
