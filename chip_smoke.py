@@ -64,7 +64,11 @@ Phases, each of which raises on failure (nothing is caught):
      of the same bytes (GB/s), with the cluster size it launches; the Poisson solve with K5 on and off, the Taylor-Green step
      and the projection-solver step; torch.profiler breakdowns by kernel, with
      the card's idle share, of one FFT round trip, one diffusion step, one
-     CG chunk, one Taylor-Green step and one K5 Poisson solve;
+     CG chunk, one Taylor-Green step and one K5 Poisson solve, captured by
+     performance.profile_trace in a fresh process (on the card,
+     torch.profiler loses kernel records once a process has run for tens
+     of seconds); where a trace lost a launch's kernel, its busy time and
+     idle share print as not measured;
   9. the one-sided exchange path: K2s (a2a_smoke, K2's single-rank program
      and K1) bit-equal on a one-rank gloo group in this process, one CUDA
      launch per call, timed, and then torch.profiler sees that one launch,
@@ -85,13 +89,38 @@ Phases, each of which raises on failure (nothing is caught):
      2 move_kernel runs on the card must be the 4 launches its C entry
      reports, and K2 over the world on blocks that outgrow its workspace,
      bit-equal, the workspace replaced by a new one
-     (testing.check_workspace_growth); in this process, the plain
-     executor's times on the card for the same data.
+     (testing.check_workspace_growth); K2's one PyTorch call timed,
+     dist.all_to_all_single of a rank's pencil over the gloo group of pr
+     on the card's tensors (never on the path); the autotuner on a 128^3
+     c64 grid with pdims (0, 0), by transpose round trips and then with
+     grid_mode='halo': the three process grids with pallas_a2a and
+     HaloMethod.PALLAS (what a CUDA grid over gloo can run), every rank
+     choosing alike, the winner's c2c round trip < 5e-4, K2 and K3
+     launched; then, outside the counted run, K2 over each sharded dim
+     and one HaloMethod.PALLAS update of every candidate grid, on random
+     c64 pencils of the sweeps' shapes, bit-equal to their plain versions;
+     in this process, the plain executor's times on the card for the same
+     data;
+ 10. the autotuner path on one card, in a fresh process (on the card,
+     torch.profiler loses kernel records once a process has run for tens
+     of seconds): make_grid of 512^3 c64 with pdims (0, 0),
+     layouts and halo methods swept: a trial of every default method
+     (all_to_all, ring, ring_xor, ring_pipelined, pallas_a2a) in each
+     layout, the natural layout winning (at P = 1 it moves no data) and
+     frozen into the grid, K1 launched 4 times in each axis-contiguous
+     round trip; one profiled axis-contiguous round trip, whose device
+     times name K1's kernel, with no launch missing its kernel, and whose
+     attributed total is within 10% of the round trip's CUDA-event time
+     (segment_roundtrip's); the performance report of 3 such round trips
+     (each transpose counted 3 times); segment_roundtrip (no exchange
+     time, the total within 10% of the four K1 launches timed alone on
+     the round trip's pencils).
 
-Before each path (5, 6, 7 and the four ranks of 9) every launch count is
-set to 0 (in 5, 6 and 7 the loaded libraries are dropped too, so the path
-loads them as a fresh process does, and K0 runs inside it; the ranks of 9
-are fresh processes); the counts are read just after.  The line
+Before each path (5, 6, 7, the four ranks of 9 and their autotuner, and
+10) every launch count is set to 0 (in 5, 6 and 7 the loaded libraries
+are dropped too, so the path loads them as a fresh process does, and K0
+runs inside it; the ranks of 9 are fresh processes); the counts are read
+just after.  The line
 before the last is a JSON object describing each kernel; the last line is
 {"ok": true, "device": {...}}.  Exits nonzero, printing neither, when CUDA
 is not available or the package is missing.
@@ -276,44 +305,104 @@ def kernel_timing(torch, K, perf, gen):
     return out, clone_ms, nbytes
 
 
-def profile_window(torch, fn, reps=3):
-    """Device time by kernel over ``reps`` calls of ``fn``, and the window
-    those calls took on the card (CUDA events), per call."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_window(torch, perf, fn, reps=3):
+    """One ``performance.profile_trace`` capture of ``reps`` calls of
+    ``fn`` (after one untraced call): the window those calls took on the
+    card (CUDA events), the device time by kernel, both per call, and the
+    launches whose kernel the trace lost."""
+    import tempfile
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
+    with tempfile.TemporaryDirectory() as d:
+        with perf.profile_trace(d):
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
         end.synchronize()
-    window_ms = start.elapsed_time(end) / reps
-    by_name = {}
-    for e in prof.key_averages():
-        # device events: the kernels, plus the GPU side of the package's
-        # own trace ranges, which would count their kernels twice
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.key.startswith("cudecomp_tpu_torch.")):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / reps
-    return window_ms, by_name
+        a = perf.device_op_attribution(d)
+    return {"window_ms": start.elapsed_time(end) / reps,
+            "by_name": {k: v / reps for k, v in a["ops"].items()},
+            "lost": a["lost_launches"]}
 
 
-def print_profile(card, what, window_ms, by_name):
+def print_profile(card, what, prof):
+    window_ms, by_name = prof["window_ms"], prof["by_name"]
     busy_ms = sum(by_name.values())
-    print(f"[{card}] profile of {what}: {window_ms:.3f} ms on the card "
-          f"(CUDA events), kernels busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / window_ms:.3f}")
-    if not by_name:
-        print("profiler saw no device time: kernel breakdown not measured")
+    if prof["lost"] or not by_name:
+        # a trace that lost kernel records undercounts the busy time
+        print(f"[{card}] profile of {what}: {window_ms:.3f} ms on the card "
+              f"(CUDA events); kernels busy and idle share not measured: "
+              f"the trace lost the kernels of {prof['lost']} launches"
+              + ("" if by_name else " and holds no device time"))
+    else:
+        print(f"[{card}] profile of {what}: {window_ms:.3f} ms on the card "
+              f"(CUDA events), kernels busy {busy_ms:.3f} ms, idle share "
+              f"{1 - busy_ms / window_ms:.3f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms:8.3f} ms  {ms / window_ms:6.1%}  {name[:110]}")
+
+
+def profiles_phase(torch, ct, bench, perf):
+    """Phase 8's profiles, each a ``profile_trace`` capture: one K5
+    Poisson solve, one 512^3 c2c round trip, one 512^3 f32 diffusion step,
+    one CG chunk and one Taylor-Green step; ``[(what, profile)]``.
+
+    They run in a process of its own (:func:`profiles_worker`): on the
+    card, torch.profiler sessions lose some or all kernel records once a
+    process has launched kernels for tens of seconds
+    (tools/profiler_loss.py)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(41)
+    out = []
+    # the fewest launches first: a session late in the process may lose
+    # records even here
+    sgrid = ct.make_grid(ct.GridConfig(gdims=(NS,) * 3, pdims=(1, 1)), DEVICE)
+    psolver = ct.models.PoissonSolver(grid=sgrid, split_complex=True)
+    f = torch.randn((NS,) * 3, generator=gen, device=DEVICE)
+    with bench.fused2(True):
+        out.append((f"one {NS}^3 f32 Poisson solve with K5", profile_window(
+            torch, perf, lambda: psolver.solve(f))))
+    del psolver, f
+    fft_plan = bench.make_plan(N, axis_contiguous=True, device=DEVICE)
+    fft_x = bench.make_field(fft_plan.grid, seed=3)
+    out.append(("one 512^3 c2c round trip", profile_window(
+        torch, perf, lambda: bench.cycle(fft_plan, fft_x))))
+    del fft_plan, fft_x
+    torch.cuda.empty_cache()
+    grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(1, 1)), DEVICE)
+    u = torch.randn((N, N, N), generator=gen, device=DEVICE)
+    out.append(("one 512^3 f32 diffusion step", profile_window(
+        torch, perf, lambda: ct.diffusion_step(grid, u, 0.1))))
+    del u, grid
+    solver = ct.models.PoissonSolver(
+        grid=ct.make_grid(ct.GridConfig(gdims=(CG_N,) * 3, pdims=(1, 1)),
+                          DEVICE))
+    f = torch.randn((CG_N,) * 3, generator=gen, device=DEVICE)
+    out.append((f"one {CG_N}^3 f32 CG chunk (64 iterations)", profile_window(
+        torch, perf, lambda: solver.solve_cg(f, tol=0.0, maxiter=64,
+                                             check_every=64), reps=2)))
+    del solver, f
+    torch.cuda.empty_cache()
+    tg = ct.models.TaylorGreenSolver(grid=sgrid, nu=1.0 / 1600.0,
+                                     split_complex=True)
+    uh, ftg = tg.setup(torch.float32)
+    out.append((f"one {NS}^3 f32 Taylor-Green IF-RK4 step", profile_window(
+        torch, perf, lambda: tg.step(uh, ftg, TG_DT))))
+    return out
+
+
+def profiles_worker(rank, out_path):
+    """Phase 8's profile process (spawned, on cuda:0):
+    :func:`profiles_phase`, written to ``out_path`` as JSON."""
+    import torch
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch import bench, performance as perf
+    torch.cuda.set_device(0)
+    with open(out_path, "w") as fh:
+        json.dump(profiles_phase(torch, ct, bench, perf), fh)
 
 
 def reset_counts(K, S, D, cb):
@@ -851,30 +940,9 @@ def peer_worker(rank, out_dir):
     ref = ct.scatter_global(fgrid, torch.fft.fftn(xg.to(torch.complex128)),
                             2)
     # K2 over each mesh dim at the path's size (a rank's 512^3/4 c64
-    # pencil in P blocks) against the plain executor on the card: every
-    # member's blocks are its world rank's quarter of the global field
-    k2_err = 0.0
-    flat = xg.view(-1)
-    local = flat.numel() // dist.get_world_size()
-    for name in fgrid.axis_names:
-        group = fgrid.group(name)
-        members = dist.get_process_group_ranks(group)
-        me = dist.get_rank(group)
-        srcs = [flat[w * local:(w + 1) * local].view(x.shape)
-                for w in members]
-        plans = [PK.a2a_plan(len(members), r,
-                             local * xg.element_size() // len(members))
-                 for r in range(len(members))]
-        want = PK.apply_plans(plans, srcs,
-                              [torch.empty_like(b) for b in srcs])[me]
-        got = PK.a2a(srcs[me], group)
-        k2_err = max(k2_err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"rank {rank}: K2 over {name} at "
-                                 f"{tuple(x.shape)} c64 differs from its "
-                                 f"plain version by {k2_err}")
-        del srcs, want, got
-    del xg, flat
+    # pencil in P blocks) against the plain executor on the card
+    k2_err = k2_against_plain(torch, dist, PK, fgrid, xg, x.shape)
+    del xg
     hg = torch.randn((N, N, N), generator=gen, device=DEVICE)
     he = (1, 1, 1)
     bufs = {p: ct.scatter_global(hgrid, hg, 0, halo_extents=he)
@@ -963,10 +1031,195 @@ def peer_worker(rank, out_dir):
                              f"the card and reported {reported} CUDA "
                              f"launches; expected 2 waits and 2 moves")
     testing.check_workspace_growth(torch.device(DEVICE), seed=3)
+    res["k2_library"] = gloo_a2a_time(torch, dist, fgrid, gen)
+    res["tune"] = tune_ranks(torch, dist, ct, rank)
     if rank == 0:
         res["mps"] = bench.mps_active()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
         json.dump(res, fh)
+
+
+def k2_against_plain(torch, dist, PK, grid, xg, shape):
+    """K2 over each mesh dim of ``grid`` with more than one rank, on blocks
+    of ``shape`` (a rank's pencil, P blocks along dim 0), against the plain
+    executor on the card; every member's blocks are its world rank's share
+    of the global field ``xg``.  Raises unless bit-equal; returns the max
+    abs difference."""
+    err = 0.0
+    flat = xg.reshape(-1)
+    local = flat.numel() // dist.get_world_size()
+    for name in grid.axis_names:
+        group = grid.group(name)
+        members = dist.get_process_group_ranks(group)
+        if len(members) == 1:
+            continue  # a dim of one rank exchanges nothing
+        me = dist.get_rank(group)
+        srcs = [flat[w * local:(w + 1) * local].view(shape)
+                for w in members]
+        plans = [PK.a2a_plan(len(members), r,
+                             local * xg.element_size() // len(members))
+                 for r in range(len(members))]
+        want = PK.apply_plans(plans, srcs,
+                              [torch.empty_like(b) for b in srcs])[me]
+        got = PK.a2a(srcs[me], group)
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"rank {dist.get_rank()}: K2 over {name} "
+                                 f"at {tuple(shape)} {xg.dtype} of pdims "
+                                 f"{grid.pdims} differs from its plain "
+                                 f"version by {err}")
+    return err
+
+
+def k3_against_plain(torch, ct, PK, testing, grid, hg, he, periods):
+    """One HaloMethod.PALLAS update of ``grid``'s x-pencil of the global
+    field ``hg`` (halo extents ``he``): it must launch K3 and be bit-equal
+    to the plain wrapped-index buffer; returns the max abs difference."""
+    buf = ct.scatter_global(grid, hg, 0, halo_extents=he)
+    n0 = PK.halo_launch_count
+    if ct.update_halos(grid, buf, 0, he, periods) is not buf:
+        raise AssertionError("update_halos returned a new tensor")
+    want = testing.expected_halo_buffer(grid, hg, 0, he, periods)
+    err = float((buf - want).abs().max())
+    if PK.halo_launch_count == n0 or not torch.equal(buf, want):
+        raise AssertionError(f"HaloMethod.PALLAS update of {hg.dtype} at "
+                             f"pdims {grid.pdims} ({PK.halo_launch_count - n0}"
+                             f" K3 launches) differs from the plain "
+                             f"wrapped-index buffer by {err}")
+    return err
+
+
+def gloo_a2a_time(torch, dist, fgrid, gen):
+    """K2's one PyTorch call: ms of ``dist.all_to_all_single`` of this
+    rank's 512^3/4 c64 pencil (as float32 pairs) over the gloo group of
+    ``pr``, on the card's tensors (gloo may stage them through the host);
+    host clock around each call and a synchronize, mean of 3 after one
+    warm-up call.  Timing only: the port never calls it on CUDA tensors.
+    ``{"ms": None, "refused": words}`` where torch refuses."""
+    group = fgrid.group(fgrid.axis_names[0])
+    pencil = torch.randn((2 * N ** 3 // dist.get_world_size(),),
+                         generator=gen, device=DEVICE)
+    out = torch.empty_like(pencil)
+    times = []
+    try:
+        for i in range(4):
+            dist.barrier()
+            t0 = time.perf_counter()
+            dist.all_to_all_single(out, pencil, group=group)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+    except RuntimeError as e:  # torch's words go into the kernels line
+        return {"ms": None, "refused": str(e).splitlines()[0][:300]}
+    finally:
+        del pencil, out
+        torch.cuda.empty_cache()
+    return {"ms": mean(times), "runs_ms": times, "refused": None}
+
+
+TUNE_N = 128   # phase 9's autotuned grid
+TUNE_GRIDS = ([1, 4], [2, 2], [4, 1])   # its candidates on four ranks
+TUNE_HALO = (1, 1, 1)
+
+
+def tune_ranks(torch, dist, ct, rank):
+    """Phase 9's autotuner, in each of the four ranks: a 128^3 c64 grid
+    with pdims (0, 0), the default candidates (on a CUDA grid over gloo,
+    pallas_a2a and HaloMethod.PALLAS), by transpose round trips and then
+    by halo updates (grid_mode='halo'); the winner's c2c round trip held
+    to the 5e-4 gate over all ranks.  After the counts are read, K2 and
+    K3 on every candidate grid at the sweeps' shapes and type (c64),
+    against their plain versions on random data."""
+    import importlib
+    at = importlib.import_module("cudecomp_tpu_torch.autotune")
+    from cudecomp_tpu_torch.ops import peer_kernels as PK
+    from cudecomp_tpu_torch.utils import testing
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(21)
+    xg = torch.view_as_complex(torch.randn((TUNE_N,) * 3 + (2,),
+                                           generator=gen, device=DEVICE))
+    out = {}
+    PK.reset_launch_counts()
+    for mode in ("transpose", "halo"):
+        opts = ct.AutotuneOptions(dtype=torch.complex64, n_warmup=1,
+                                  n_trials=2, autotune_halo_method=True,
+                                  halo_extents=TUNE_HALO, grid_mode=mode)
+        t0 = time.perf_counter()
+        res = at.autotune(ct.GridConfig(gdims=(TUNE_N,) * 3), DEVICE, opts)
+        tune_s = time.perf_counter() - t0
+        plan = ct.DistributedFFT(grid=res.grid)
+        x = ct.scatter_global(res.grid, xg, 0)
+        back = plan.inverse(plan.forward(x))
+        torch.cuda.synchronize()
+        err = torch.tensor([float((back - x).abs().max())])
+        dist.all_reduce(err, op=dist.ReduceOp.MAX)
+        out[mode] = {
+            "best": [list(res.best_pdims), res.best_method.value,
+                     res.best_halo_method.value],
+            "frozen": [list(res.grid.pdims),
+                       res.grid.config.transpose_method.value,
+                       res.grid.config.halo_method.value],
+            "trials": [[list(t.pdims), t.method, t.skipped]
+                       for t in res.trials],
+            "halo_trials": [[list(t.pdims), t.method, t.skipped]
+                            for t in res.halo_trials],
+            "report": res.report() if rank == 0 else None,
+            "err": float(err[0]), "s": tune_s}
+        del plan, x, back
+    out["counts"] = {"K2": PK.a2a_launch_count, "K3": PK.halo_launch_count}
+
+    # the kernels against their plain versions at the sweeps' shapes: the
+    # candidates' pencils of c64 (the trials time zeros)
+    hg = torch.view_as_complex(torch.randn((TUNE_N,) * 3 + (2,),
+                                           generator=gen, device=DEVICE))
+    out["k2_err"] = out["k3_err"] = 0.0
+    for pdims in TUNE_GRIDS:
+        grid = ct.make_grid(ct.GridConfig(
+            gdims=(TUNE_N,) * 3, pdims=pdims,
+            transpose_method=ct.TransposeMethod.PALLAS_A2A,
+            halo_method=ct.HaloMethod.PALLAS), DEVICE)
+        out["k2_err"] = max(out["k2_err"], k2_against_plain(
+            torch, dist, PK, grid, xg, grid.buffer_shape(0)))
+        out["k3_err"] = max(out["k3_err"], k3_against_plain(
+            torch, ct, PK, testing, grid, hg, TUNE_HALO,
+            opts.halo_periods))
+    del xg, hg
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_tune_ranks(ranks):
+    """Phase 9's autotuner: every rank chose alike, the candidates were
+    the three process grids with pallas_a2a and HaloMethod.PALLAS, none
+    skipped, and the winner's round trip passed the gate."""
+    grids = [list(g) for g in TUNE_GRIDS]
+    if any(min(r["tune"]["counts"].values()) < 1 for r in ranks):
+        raise AssertionError(f"phase 9 autotune launched no K2 or no K3: "
+                             f"{[r['tune']['counts'] for r in ranks]}")
+    for mode in ("transpose", "halo"):
+        tunes = [r["tune"][mode] for r in ranks]
+        if any(t["best"] != tunes[0]["best"] for t in tunes):
+            raise AssertionError(f"phase 9 autotune ({mode}): the ranks "
+                                 f"chose {[t['best'] for t in tunes]}")
+        t = tunes[0]
+        if t["frozen"] != t["best"] or t["best"][1:] != ["pallas_a2a",
+                                                         "pallas"]:
+            raise AssertionError(f"phase 9 autotune ({mode}): chose "
+                                 f"{t['best']}, the grid holds "
+                                 f"{t['frozen']}")
+        want_t = ([[g, "pallas_a2a", False] for g in grids]
+                  if mode == "transpose"
+                  else [[t["best"][0], "pallas_a2a", False]])
+        want_h = ([[t["best"][0], "pallas", False]] if mode == "transpose"
+                  else [[g, "pallas", False] for g in grids])
+        if t["trials"] != want_t or t["halo_trials"] != want_h:
+            raise AssertionError(f"phase 9 autotune ({mode}): trials "
+                                 f"{t['trials']}, halo trials "
+                                 f"{t['halo_trials']}")
+        if not max(x["err"] for x in tunes) < GATE:
+            raise AssertionError(f"phase 9 autotune ({mode}): the winner's "
+                                 f"round trip max abs err "
+                                 f"{max(x['err'] for x in tunes)}")
 
 
 def peer_phase(torch, perf):
@@ -1063,6 +1316,189 @@ def peer_phase(torch, perf):
     del bufs
     torch.cuda.empty_cache()
     return res
+
+
+# -- phase 10: the autotuner, the performance report and the profiler trace -----
+
+def with_card(card, text):
+    return "\n".join(f"[{card}] {line}" for line in text.splitlines())
+
+
+def autotune_phase(torch, ct, K, perf):
+    """Phase 10 on one card: ``make_grid`` with pdims (0, 0) at 512^3 c64
+    (the autotuner's result caught on its way out), then a profiled round
+    trip, the performance report, ``segment_roundtrip`` and K1 alone on
+    the axis-contiguous grid; raises on any failed check.
+
+    It runs in a process of its own (:func:`autotune_worker`): on the
+    card, torch.profiler sessions lose some or all kernel records once a
+    process has launched kernels for tens of seconds
+    (tools/profiler_loss.py)."""
+    import importlib
+    at = importlib.import_module("cudecomp_tpu_torch.autotune")
+    from cudecomp_tpu_torch.ops.transpose import _net_perm
+
+    opts = ct.AutotuneOptions(autotune_layouts=True,
+                              autotune_halo_method=True,
+                              halo_extents=(1, 1, 1), dtype=torch.complex64,
+                              n_warmup=2, n_trials=3)
+    caught = []
+    real = at.autotune
+
+    def spy(*a, **k):
+        caught.append(real(*a, **k))
+        return caught[-1]
+
+    at.autotune = spy
+    K.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(0, 0)),
+                            DEVICE, autotune_options=opts)
+    finally:
+        at.autotune = real
+    torch.cuda.synchronize()
+    res = {"tune_s": time.perf_counter() - t0, "k1": K.launch_count}
+    (result,) = caught
+    methods = ["all_to_all", "ring", "ring_xor", "ring_pipelined",
+               "pallas_a2a"]
+    tags = [f"{m}/ac={a}" for m in methods for a in (0, 1)]
+    if ([(t.pdims, t.method, t.skipped) for t in result.trials]
+            != [((1, 1), tag, False) for tag in tags]):
+        raise AssertionError(f"phase 10 trials {result.trials}")
+    if [t.method for t in result.halo_trials] != ["ppermute", "pallas"]:
+        raise AssertionError(f"phase 10 halo trials {result.halo_trials}")
+    cfg = grid.config
+    if (cfg.pdims, cfg.transpose_method, cfg.halo_method) != (
+            result.best_pdims, result.best_method,
+            result.best_halo_method) or grid is not result.grid:
+        raise AssertionError(f"phase 10: the grid holds {cfg}, the "
+                             f"autotuner chose {result.best_pdims} "
+                             f"{result.best_method} "
+                             f"{result.best_halo_method}")
+    if cfg.transpose_axis_contiguous != (False,) * 3:
+        raise AssertionError("phase 10: an axis-contiguous layout beat the "
+                             "natural one, which moves no data at P = 1")
+    round_trips = len(methods) * (opts.n_warmup
+                                  + opts.n_trials * at.TRIAL_ITERS)
+    if res["k1"] != 4 * round_trips:
+        raise AssertionError(f"phase 10: the autotuner launched K1 "
+                             f"{res['k1']} times, expected 4 in each of the "
+                             f"{round_trips} axis-contiguous round trips")
+    res["report"] = result.report()
+
+    acgrid = ct.make_grid(ct.GridConfig(
+        gdims=(N, N, N), pdims=(1, 1), transpose_axis_contiguous=(True,) * 3,
+        transpose_method=result.best_method), DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(31)
+    x = torch.view_as_complex(torch.randn((N, N, N, 2), generator=gen,
+                                          device=DEVICE))
+
+    def roundtrip():
+        b = ct.transpose_x_to_y(acgrid, x)
+        b = ct.transpose_y_to_z(acgrid, b)
+        b = ct.transpose_z_to_y(acgrid, b)
+        return ct.transpose_y_to_x(acgrid, b)
+
+    K.reset_launch_count()
+    if not torch.equal(roundtrip(), x) or K.launch_count != 4:
+        raise AssertionError(f"phase 10: the axis-contiguous round trip "
+                             f"launched K1 {K.launch_count} times or "
+                             f"changed its input")
+
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with ct.profile_trace(d):
+            start.record()
+            roundtrip()
+            end.record()
+        end.synchronize()
+        res["event_ms"] = start.elapsed_time(end)
+        res["op_times"] = perf.device_op_times(d)
+        res["attribution"] = perf.device_op_attribution(d)
+
+    perf.REGISTRY.clear()
+    ct.perf_report_enable(True)
+    try:
+        for _ in range(3):
+            roundtrip()
+    finally:
+        ct.perf_report_enable(False)
+    rows = perf.REGISTRY.rows()
+    names = sorted(r["config"].split("/")[0] for r in rows)
+    if names != sorted(f"transpose_{op}" for op in (
+            "x_to_y", "y_to_z", "z_to_y", "y_to_x")) or any(
+            r["count"] != 3 for r in rows):
+        raise AssertionError(f"phase 10 report rows {rows}")
+    res["perf_report"] = perf.REGISTRY.report()
+    res["report_ms"] = sum(r["avg_ms"] for r in rows)
+    perf.REGISTRY.clear()
+
+    seg = ct.segment_roundtrip(acgrid, torch.complex64, iters=5,
+                               n_warmup=2, n_trials=5, record=False)
+    # the four K1 launches alone, on the round trip's own pencils
+    pencils = [x]
+    for op in ("x_to_y", "y_to_z", "z_to_y"):
+        pencils.append(getattr(ct, f"transpose_{op}")(acgrid, pencils[-1]))
+    k1_ms = [mean(perf.time_fn(K.cyclic_permute, t,
+                               _net_perm(acgrid.config, ax, d), n_warmup=2,
+                               n_trials=5, iters=5)) * 1e3
+             for t, (ax, d) in zip(pencils, ((0, 1), (1, 1), (2, -1),
+                                             (1, -1)))]
+    del pencils
+    res.update(seg=seg, k1_ms=k1_ms)
+    if seg["a2a_ms"] != 0 or not abs(seg["total_ms"] - sum(k1_ms)) <= (
+            0.1 * sum(k1_ms)):
+        raise AssertionError(f"phase 10 segment_roundtrip {seg}, the four "
+                             f"K1 times {k1_ms} ms")
+    # the traced kernels' sum against the round trip's CUDA-event time in
+    # steady state (segment_roundtrip's total; the traced window also
+    # holds the host's time to its first launch)
+    k1_names = [k for k in res["op_times"] if "transpose2d_kernel" in k]
+    a = res["attribution"]
+    if (not k1_names or a["lost_launches"]
+            or not abs(a["total_ms"] - seg["total_ms"]) <= (
+                0.1 * seg["total_ms"])):
+        raise AssertionError(f"phase 10 profile: device ops "
+                             f"{sorted(res['op_times'])}, attributed "
+                             f"{a['total_ms']} ms against "
+                             f"{seg['total_ms']} ms, "
+                             f"{a['lost_launches']} launches without their "
+                             f"kernel in the trace")
+    res["k1_names"] = k1_names
+    del x, acgrid, grid, result
+    torch.cuda.empty_cache()
+    return res
+
+
+def autotune_worker(rank, out_path):
+    """Phase 10's process (spawned, on cuda:0): :func:`autotune_phase`,
+    its results written to ``out_path`` as JSON; raises on any failed
+    check.  Its report discards no sample, so that it counts every one of
+    its three round trips."""
+    os.environ["CUDECOMP_TPU_PERF_N_WARMUP"] = "0"
+    import torch
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch import performance as perf
+    from cudecomp_tpu_torch.ops import cuda_kernels as K
+    torch.cuda.set_device(0)
+    with open(out_path, "w") as fh:
+        json.dump(autotune_phase(torch, ct, K, perf), fh)
+
+
+def fresh_process(worker, what):
+    """``worker(0, out_path)`` in a fresh spawned process on the card; the
+    JSON it wrote to ``out_path``."""
+    import tempfile
+    from cudecomp_tpu_torch.utils.testing import run_ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out.json")
+        run_ranks(worker, 1, (out,), 300, what)
+        with open(out) as fh:
+            return json.load(fh)
 
 
 def main() -> int:
@@ -1244,42 +1680,13 @@ def main() -> int:
           f"{nsh['on_ms']:.3f} ms, off {nsh['off_ms']:.3f} ms (runs "
           f"{nsh['runs_ms']})")
 
-    fft_plan = bench.make_plan(N, axis_contiguous=True, device=DEVICE)
-    fft_x = bench.make_field(fft_plan.grid, seed=3)
-    print_profile(card, "one 512^3 c2c round trip",
-                  *profile_window(torch, lambda: bench.cycle(fft_plan,
-                                                             fft_x)))
-    del fft_plan, fft_x
     torch.cuda.empty_cache()
-    grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(1, 1)), DEVICE)
-    u = torch.randn((N, N, N), generator=gen, device=DEVICE)
-    print_profile(card, "one 512^3 f32 diffusion step",
-                  *profile_window(torch, lambda: ct.diffusion_step(grid, u,
-                                                                   0.1)))
-    del u
-    solver = ct.models.PoissonSolver(
-        grid=ct.make_grid(ct.GridConfig(gdims=(CG_N,) * 3, pdims=(1, 1)),
-                          DEVICE))
-    f = torch.randn((CG_N,) * 3, generator=gen, device=DEVICE)
-    print_profile(card, f"one {CG_N}^3 f32 CG chunk (64 iterations)",
-                  *profile_window(torch, lambda: solver.solve_cg(
-                      f, tol=0.0, maxiter=64, check_every=64), reps=2))
-    del solver, f
-    torch.cuda.empty_cache()
-    sgrid = ct.make_grid(ct.GridConfig(gdims=(NS,) * 3, pdims=(1, 1)), DEVICE)
-    tg = ct.models.TaylorGreenSolver(grid=sgrid, nu=1.0 / 1600.0,
-                                     split_complex=True)
-    uh, ftg = tg.setup(torch.float32)
-    print_profile(card, f"one {NS}^3 f32 Taylor-Green IF-RK4 step",
-                  *profile_window(torch, lambda: tg.step(uh, ftg, TG_DT)))
-    del uh, ftg
-    psolver = ct.models.PoissonSolver(grid=sgrid, split_complex=True)
-    f = torch.randn((NS,) * 3, generator=gen, device=DEVICE)
-    with bench.fused2(True):
-        print_profile(card, f"one {NS}^3 f32 Poisson solve with K5",
-                      *profile_window(torch, lambda: psolver.solve(f)))
-    del psolver, f, tg, sgrid, grid
-    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    profs = fresh_process(profiles_worker, "phase 8's profile process")
+    print(f"[{card}] phase 8's profiles, in a fresh process "
+          f"({time.perf_counter() - t0:.1f} s):")
+    for what, prof in profs:
+        print_profile(card, what, prof)
 
     # phase 9: the one-sided exchange path, four ranks sharing the card
     peer = peer_phase(torch, perf)
@@ -1327,8 +1734,67 @@ def main() -> int:
     print(f"[{card}] K2s (1024, 256) f32: {k2s['ms'] * 1e3:.2f} us; the plain "
           f"executor {k2s['plain_ms'] * 1e3:.2f} us; clone() "
           f"{k2s['clone_ms'] * 1e3:.2f} us")
-    print("K2 and K3 library_ms null: no single PyTorch call runs them here, "
-          "since NCCL cannot place four ranks on one card")
+    lib = [r["k2_library"] for r in ranks]
+    k2_lib_ms = (None if any(x["ms"] is None for x in lib)
+                 else max(x["ms"] for x in lib))
+    if k2_lib_ms is None:
+        print(f"K2 library_ms null: dist.all_to_all_single of CUDA tensors "
+              f"over gloo refused: {[x['refused'] for x in lib]}")
+    else:
+        print(f"[{card}, {mps}] K2's one PyTorch call, dist.all_to_all_single"
+              f" of the same pencil over the gloo group of pr (CUDA tensors, "
+              f"gloo may stage them through the host): {k2_lib_ms:.3f} ms "
+              f"(slowest rank; ranks {[x['runs_ms'] for x in lib]})")
+    print("K3 library_ms null: no single PyTorch call runs its halo puts "
+          "here, since NCCL cannot place four ranks on one card")
+    check_tune_ranks(ranks)
+    tune_counts = {k: sum(r["tune"]["counts"][k] for r in ranks)
+                   for k in ("K2", "K3")}
+    for mode in ("transpose", "halo"):
+        t = ranks[0]["tune"][mode]
+        print(f"[{card}, {mps}] {PEER_RANKS} ranks, autotune of {TUNE_N}^3 "
+              f"c64 pdims (0, 0) by {mode} timings in "
+              f"{max(r['tune'][mode]['s'] for r in ranks):.2f} s (slowest "
+              f"rank): every rank chose {t['best']}; the "
+              f"winner's c2c round trip max abs err "
+              f"{max(r['tune'][mode]['err'] for r in ranks):.3e} (< {GATE}); "
+              f"K2 and K3 launches of both sweeps over the ranks "
+              f"{tune_counts}, each kernel bit-equal to its plain version "
+              f"on every candidate grid's c64 pencils (max abs diff K2 "
+              f"{max(r['tune']['k2_err'] for r in ranks)}, K3 "
+              f"{max(r['tune']['k3_err'] for r in ranks)}); rank 0's trial "
+              f"table:")
+        print(with_card(f"{card}, {mps}", t["report"]))
+
+    # phase 10, in a process of its own: the autotuner, a trace, the
+    # performance report
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp = fresh_process(autotune_worker, "phase 10's process")
+    tp["process_s"] = time.perf_counter() - t0
+    print(f"[{card}] make_grid 512^3 c64 pdims (0, 0), layouts and halo "
+          f"methods swept, in a fresh process ({tp['process_s']:.1f} s in "
+          f"all): {tp['tune_s']:.2f} s; K1 launched "
+          f"{tp['k1']} times (4 per axis-contiguous round trip); the "
+          f"natural layout won and is frozen into the grid; the trial "
+          f"table:")
+    print(with_card(card, tp["report"]))
+    print(f"[{card}] performance report of 3 axis-contiguous 512^3 c64 round "
+          f"trips (sum of the four avg {tp['report_ms']:.4f} ms):")
+    print(with_card(card, tp["perf_report"]))
+    seg = tp["seg"]
+    print(f"[{card}] segment_roundtrip axis-contiguous 512^3 c64: total "
+          f"{seg['total_ms']:.4f} ms, a2a {seg['a2a_ms']:.4f} ms, local "
+          f"{seg['local_ms']:.4f} ms; the four K1 launches alone "
+          f"{[round(t, 4) for t in tp['k1_ms']]} ms, sum "
+          f"{sum(tp['k1_ms']):.4f} ms")
+    at_ = tp["attribution"]
+    print(f"[{card}] profile_trace of one round trip: {tp['event_ms']:.4f} ms "
+          f"(CUDA events around it, the host's first launch included), "
+          f"attributed device time {at_['total_ms']:.4f} ms "
+          f"(comm {at_['comm_ms']:.4f}, local {at_['local_ms']:.4f}); K1 "
+          f"kernels {[k[:60] for k in tp['k1_names']]}; by range "
+          f"{ {k: round(v, 4) for k, v in at_['ranges'].items()} }")
 
     t120 = perm_t[(1, 2, 0)]
     ms_to_bound = 1e3 / HBM_BYTES_PER_S
@@ -1350,7 +1816,7 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/transpose2d.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:299",
-         "launches": mp["launches"],
+         "launches": mp["launches"] + tp["k1"],
          "max_abs_err": worst,
          "ms": t120["kernel"],
          "plain_ms": t120["plain"],
@@ -1385,13 +1851,14 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/peer.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:183",
-         "launches": path["K2"],
-         "max_abs_err": max(r["k2_err"] for r in ranks),
+         "launches": path["K2"] + tune_counts["K2"],
+         "max_abs_err": max(max(r["k2_err"], r["tune"]["k2_err"])
+                            for r in ranks),
          "ms": pt["k2_ms"],
          "plain_ms": peer["k2_plain_ms"],
          "bound_ms": peer["k2_bytes"] / HBM_BYTES_PER_S * 1e3,
          "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": k2_lib_ms},
         {"name": "K2s a2a_smoke (K2 at P = 1)",
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/peer.cu",
@@ -1407,8 +1874,9 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/peer.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:571",
-         "launches": path["K3"],
-         "max_abs_err": max(r["halo_err"] for r in ranks),
+         "launches": path["K3"] + tune_counts["K3"],
+         "max_abs_err": max(max(r["halo_err"], r["tune"]["k3_err"])
+                            for r in ranks),
          "ms": pt["k3_ms"],
          "plain_ms": peer["k3_plain_ms"],
          "bound_ms": peer["k3_bytes"] / HBM_BYTES_PER_S * 1e3,

@@ -22,14 +22,23 @@ JAX package stays the reference and the tests hold this package to it.
     pair of an eligible 3D stage through the K5 CUDA kernel
     (``ops.dft2``).
 
-Ported so far: config, geometry, grid and mesh, the all-to-all and the
-kernel exchanges, the four transposes, the distributed FFT, the halo engine, the
+  * ``make_grid`` with pdims ``(0, 0)`` runs the autotuner (``autotune``),
+    which times the candidate process grids, transpose methods (the
+    all-to-all, the per-peer rings, the pipelined transpose and the
+    kernel exchange, where each can run), layouts and halo methods on the
+    grid's device; the performance report (``performance``) records each
+    transpose and halo update while it is on.
+
+Ported so far: config, geometry, grid and mesh, every exchange strategy,
+the four transposes, the distributed FFT, the halo engine, the
 ghost-plane stencil path, the spectral operators, the Poisson (spectral
-and CG), Taylor-Green and projection solvers, checkpoints, ``time_fn``
-and the benchmark.
+and CG), Taylor-Green and projection solvers, checkpoints, the autotuner,
+the performance report and timing, and the benchmark.
 """
 
 from cudecomp_tpu_torch.config import (
+    AutotuneOptions,
+    CannotRun,
     GridConfig,
     HaloMethod,
     RankOrder,
@@ -61,6 +70,10 @@ from cudecomp_tpu_torch.ops.transpose import (
     transpose_y_to_z,
     transpose_z_to_y,
 )
+from cudecomp_tpu_torch.autotune import AutotuneResult, autotune
+from cudecomp_tpu_torch import performance
+from cudecomp_tpu_torch.performance import (perf_report_enable, profile_trace,
+                                            segment_roundtrip)
 from cudecomp_tpu_torch.utils import checkpoint
 from cudecomp_tpu_torch.utils.arrays import (gather_global, scatter_global,
                                              valid_interior_mask)
@@ -72,6 +85,8 @@ __all__ = [
     "TransposeMethod",
     "HaloMethod",
     "RankOrder",
+    "AutotuneOptions",
+    "CannotRun",
     "PencilInfo",
     "get_splits",
     "get_split_offsets",
@@ -102,6 +117,12 @@ __all__ = [
     "SpectralOperators",
     "wavenumber_fields",
     "dealias_mask",
+    "autotune",
+    "AutotuneResult",
+    "performance",
+    "perf_report_enable",
+    "profile_trace",
+    "segment_roundtrip",
     "checkpoint",
     "scatter_global",
     "gather_global",

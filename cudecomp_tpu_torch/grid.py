@@ -19,7 +19,8 @@ import torch
 from cudecomp_tpu_torch import geometry
 from cudecomp_tpu_torch.config import GridConfig
 from cudecomp_tpu_torch.geometry import PencilInfo, Triple
-from cudecomp_tpu_torch.parallel.mesh import build_mesh, check_cards
+from cudecomp_tpu_torch.parallel.mesh import (build_mesh, check_cards,
+                                              world_hosts)
 
 
 def resolve_device(device) -> torch.device:
@@ -45,12 +46,16 @@ class GridDescriptor:
       mesh: DeviceMesh holding the decomposition dims; None for (1, 1).
         A dim of size 1 may be absent from the mesh.
       axis_names: mesh dim names for (pr, pc).
+      hosts: the host name of each global rank (``mesh.world_hosts``),
+        which sets ``ring_hier``'s fast groups; None where unknown (a
+        caller's mesh), and then ``ring_hier`` runs a flat ring.
     """
 
     config: GridConfig
     device: torch.device
     mesh: Optional[object] = None
     axis_names: Tuple[str, str] = ("pr", "pc")
+    hosts: Optional[Tuple[str, ...]] = None
 
     def __post_init__(self):
         cfg = self.config
@@ -139,27 +144,44 @@ class GridDescriptor:
 
 
 def make_grid(config: GridConfig, device, mesh=None,
-              axis_names: Tuple[str, str] = ("pr", "pc")) -> GridDescriptor:
+              axis_names: Tuple[str, str] = ("pr", "pc"),
+              autotune_options=None, example_dtype=None) -> GridDescriptor:
     """Create a GridDescriptor (``cudecompGridDescCreate``).
 
     ``device`` is where this rank's pencils live.  With ``Pr * Pc > 1`` and
     no ``mesh``, a mesh over the whole default process group is built in
     the configured rank order (every rank must call).  Ranks may share a
     card over a gloo default group (``parallel/mesh.py``: the rule, and
-    ``check_cards``, which refuses NCCL there).  ``pdims (0, 0)``
-    (autotuning) is not available in this package yet.
+    ``check_cards``, which refuses NCCL there).
+
+    With ``pdims (0, 0)``, or ``autotune_options`` that sweep the transpose
+    method, the autotuner (``autotune.autotune``) times the candidates on
+    ``device`` with ``example_dtype`` trial data and returns the winner's
+    grid (``src/cudecomp.cc:1200-1211``); every rank must call.
     """
-    if config.autotune_pdims:
-        raise NotImplementedError(
-            "pdims (0, 0) asks for the autotuner, which cudecomp_tpu_torch "
-            "does not have yet; give pdims explicitly")
+    if config.autotune_pdims or (
+            autotune_options is not None
+            and autotune_options.autotune_transpose_method):
+        if mesh is not None:
+            # the sweep builds its own candidate meshes over the world; a
+            # caller's mesh would be dropped in silence
+            raise ValueError(
+                "make_grid: autotuning with an explicit mesh is not "
+                "supported; autotune first and bind the winning config to "
+                "your mesh with GridDescriptor(config=result.grid.config, "
+                "device=..., mesh=mesh)")
+        from cudecomp_tpu_torch.autotune import autotune
+        return autotune(config, device, options=autotune_options,
+                        axis_names=axis_names, dtype=example_dtype).grid
     device = resolve_device(device)
+    hosts = None
     if mesh is None and config.pdims != (1, 1):
         check_cards(device)
         mesh = build_mesh(config.pdims, device.type, config.rank_order,
                           axis_names)
+        hosts = world_hosts()
     return GridDescriptor(config=config, device=device, mesh=mesh,
-                          axis_names=axis_names)
+                          axis_names=axis_names, hosts=hosts)
 
 
 def clear_plan_caches() -> None:

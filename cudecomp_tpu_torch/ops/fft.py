@@ -122,9 +122,8 @@ class DistributedFFT:
     def complex_grid(self) -> GridDescriptor:
         if not self.real:
             return self.grid
-        return GridDescriptor(config=complex_grid_config(self.grid.config),
-                              device=self.grid.device, mesh=self.grid.mesh,
-                              axis_names=self.grid.axis_names)
+        return dataclasses.replace(
+            self.grid, config=complex_grid_config(self.grid.config))
 
     def _stages(self):
         return plan_stages(self.complex_grid.config)

@@ -16,6 +16,13 @@ this rank's local pencil tensor, in three phases
   * Uneven extents use the padded-pencil format (see ``geometry``): each
     peer's chunk is padded with zeros to the maximum split, exchanged at
     uniform size, and the valid parts reassembled.
+  * ``ring_pipelined`` (``transpose.h:683-744``) has no pack phase: step
+    ``s`` sends peer ``me+s`` its chunk of the scatter dim straight from
+    the input and unpacks the chunk received from peer ``me-s`` with one
+    permute (K1 where it is cyclic) into the output.  On uneven extents
+    the chunks are the pad-to-max size: a ragged last chunk is padded
+    with zeros, a received chunk is cut to its sender's valid gather
+    extent, and the scatter rows past this rank's own extent are zeroed.
   * Plans are cached per configuration and grid (and so per process
     group), the analog of the reference's graph cache (graph.h:37-51).
 
@@ -23,6 +30,8 @@ Input/output halo extents and padding are supported per op as in the
 reference API (``include/cudecomp.h:545-660``); trailing component dims
 (beyond the 3 pencil dims) travel with each element.  The outputs are new
 tensors, except that a transpose which moves no data may return its input.
+While the performance report is on, each call records one sample
+(``performance.maybe_record``).
 """
 
 from __future__ import annotations
@@ -31,12 +40,14 @@ from functools import lru_cache
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
-from cudecomp_tpu_torch import geometry
+from cudecomp_tpu_torch import geometry, performance
 from cudecomp_tpu_torch.config import TransposeMethod
 from cudecomp_tpu_torch.geometry import _check_extents
 from cudecomp_tpu_torch.ops import cuda_kernels
-from cudecomp_tpu_torch.parallel.collectives import EXCHANGES
+from cudecomp_tpu_torch.parallel.collectives import (EXCHANGES, exchange_for,
+                                                     ppermute_group)
 from cudecomp_tpu_torch.utils.tracing import trace_range
 
 _NAMES = ("x", "y", "z")
@@ -124,15 +135,59 @@ def _build_transpose_fn(grid, ax: int, dir_: int, in_halo, out_halo,
     # position of the gather dim after movedim(scatter -> 0)
     gpos = gather_dim + 1 if gather_dim < scatter_dim else gather_dim
 
-    def exchange(blocks):
-        if method_key == "ring_pipelined":
-            raise NotImplementedError(
-                "transpose method 'ring_pipelined' is not available in "
-                "cudecomp_tpu_torch yet; use 'all_to_all'")
-        return EXCHANGES[method_key](blocks, grid.group(comm_name), P, Bs)
+    pipelined = method_key == "ring_pipelined"
+    if P > 1 and not pipelined:
+        exchange = exchange_for(method_key, grid, comm_name)
+
+    # ring_pipelined: the chunk of peer p is rows off_scatter[p] + [0, Bs)
+    # of the scatter dim; the unpack permute composes input order -> output
+    # order in one permute (output dim j holds global axis out_order[j])
+    pos_sc_in = in_order.index(scatter_dim)
+    pos_sc_out = out_order.index(scatter_dim)
+    pos_g_out = out_order.index(gather_dim)
+    off_gather = geometry.get_split_offsets(
+        cfg.effective_gdims_dist[gather_dim], P)
+    perm_unpack = tuple(in_inv[out_order[j]] for j in range(3))
+    ms_out = geometry.max_splits(cfg, ax_out)
+
+    def pipelined_fn(t):
+        group = grid.group(comm_name)
+        me = dist.get_rank(group)
+        interior = tuple(ms_out[out_order[i]] for i in range(3))
+        out = t.new_empty(interior + tuple(t.shape[3:]))
+
+        def chunk_for(peer):
+            lo = off_scatter[peer]
+            rows = min(Bs, t.shape[pos_sc_in] - lo)
+            c = t.narrow(pos_sc_in, lo, rows)
+            if rows < Bs:  # the ragged last chunk, padded to the max split
+                pad = list(c.shape)
+                pad[pos_sc_in] = Bs - rows
+                c = torch.cat([c, c.new_zeros(pad)], dim=pos_sc_in)
+            return c
+
+        def unpack(blk, sender):
+            width = splits_gather[sender]
+            c = _local_permute(blk, perm_unpack)
+            out.narrow(pos_g_out, off_gather[sender], width).copy_(
+                c.narrow(pos_g_out, 0, width))
+
+        unpack(chunk_for(me), me)
+        for s in range(1, P):
+            recv = ppermute_group(chunk_for((me + s) % P), group,
+                                  [(j, (j + s) % P) for j in range(P)])
+            unpack(recv, (me - s) % P)
+        mine = splits_scatter[me]
+        if mine < Bs:  # rows past this rank's extent: a neighbour's data
+            out.narrow(pos_sc_out, mine, Bs - mine).zero_()
+        return out
 
     def local_fn(local):
         t = _strip_halos_padding(local, in_order, in_halo, ms_in)
+
+        if pipelined and P > 1:
+            return _add_halos_padding(pipelined_fn(t), out_order, out_halo,
+                                      out_pad)
 
         if P == 1:
             # slab degeneration: no exchange; one net permute
@@ -155,7 +210,7 @@ def _build_transpose_fn(grid, ax: int, dir_: int, in_halo, out_halo,
                 blocks[p * Bs:p * Bs + splits_scatter[p]] = tm[
                     off_scatter[p]:off_scatter[p] + splits_scatter[p]]
         # ---- exchange over the mesh dim ----
-        recv = exchange(blocks)
+        recv = exchange(blocks, grid.group(comm_name), P, Bs)
         # ---- unpack: reassemble the gather dim ----
         if even:
             out_m = _concat_gather_even(recv, P, Bs, Bg, gpos)
@@ -201,9 +256,22 @@ def _transpose_impl(grid, arr, ax: int, dir_: int,
 
     fn = _build_transpose_fn(grid, ax, dir_, in_halo, out_halo, in_pad,
                              out_pad, method_key, arr.dim() - 3)
-    with trace_range(
-            f"cudecomp_tpu_torch.transpose_{_NAMES[ax]}_to_{_NAMES[ax_out]}"):
-        return fn(arr)
+    op_name = f"transpose_{_NAMES[ax]}_to_{_NAMES[ax_out]}"
+
+    def perf_key():
+        # the key and bytes of the JAX package's samples: everything but
+        # the self block of this rank's interior leaves the rank
+        P = cfg.pdims[geometry.shard_pdim_of_dim(ax_out, ax)]
+        ms_in = geometry.max_splits(cfg, ax)
+        nbytes = int(ms_in[0] * ms_in[1] * ms_in[2] * arr.element_size()
+                     * (P - 1) / P)
+        key = (op_name, cfg.gdims, cfg.pdims, method_key,
+               performance.dtype_name(arr.dtype), in_halo, out_halo, in_pad,
+               out_pad)
+        return key, nbytes
+
+    with trace_range(f"cudecomp_tpu_torch.{op_name}"):
+        return performance.maybe_record(perf_key, fn, arr)
 
 
 def _public(ax, dir_):

@@ -8,21 +8,24 @@ peer ``q`` sent.
   * ``exchange_all_to_all`` — one ``torch.distributed.all_to_all_single``
     over the axis group (NCCL on the GPU, gloo on the CPU): the analog of
     the reference's NCCL/MPI one-shot backends.
+  * ``exchange_ring``, ``exchange_ring_xor``, ``exchange_ring_hier`` — P-1
+    point-to-point steps, one peer per step, in the increment, XOR
+    (pairwise swaps) or two-tier host-aware order: the reference's
+    per-peer backends (``getAlltoallPeerRanks``, ``common.h:533-577``).
+    They share one scaffold, :func:`_ring_exchange`, which alone holds
+    the block contract; each step is a :func:`ppermute_group`.
   * ``exchange_pallas_a2a`` — K2, the one-sided all-to-all kernel
     (``ops/peer_kernels.py``), for CUDA tensors; a CPU tensor takes
     ``exchange_all_to_all``, as the JAX package does off the TPU.
 
-The per-peer strategies (``ring``, ``ring_xor``, ``ring_hier``, the
-pipelined transpose) are not ported yet: they raise
-``NotImplementedError`` when an exchange over more than one rank would
-run.  A slab transpose never exchanges, so on a ``(1, 1)`` grid every
-method works.
+The pipelined transpose (``ring_pipelined``) restructures the whole
+transpose around the ring's steps; the transpose engine holds it.
 
 Ranks that share one card (NCCL refuses two ranks on one GPU) run over a
 gloo process group, which exchanges CPU tensors only: there the CUDA
 tensors travel through the kernels (``pallas_a2a``, ``HaloMethod.PALLAS``),
-and ``exchange_all_to_all`` and ``ppermute`` raise on a CUDA tensor over a
-gloo group.
+and ``exchange_all_to_all``, ``ppermute`` and so the rings raise on a CUDA
+tensor over a gloo group.  Nothing is staged through the host.
 
 Beside the transposes' exchanges:
 
@@ -35,17 +38,21 @@ Beside the transposes' exchanges:
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from cudecomp_tpu_torch.config import CannotRun
 from cudecomp_tpu_torch.ops import peer_kernels
+from cudecomp_tpu_torch.parallel.mesh import axis_group_size
+from cudecomp_tpu_torch.utils.tracing import EXCHANGE_PREFIX, trace_range
 
 
 def _refuse_cuda_over_gloo(x: torch.Tensor, group, what: str) -> None:
     if x.device.type != "cpu" and str(dist.get_backend(group)) == "gloo":
-        raise ValueError(
+        raise CannotRun(
             f"{what} of a {x.device.type} tensor over a gloo process group: "
             f"gloo exchanges CPU tensors. Ranks that share a card exchange "
             f"with the kernels (TransposeMethod.PALLAS_A2A, "
@@ -92,8 +99,9 @@ def ppermute_group(x: torch.Tensor, group,
             ops.append(dist.P2POp(dist.irecv, wire_recv,
                                   dist.get_global_rank(group, src), group))
     if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        with trace_range(EXCHANGE_PREFIX + "ppermute"):
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
     return recv
 
 
@@ -133,21 +141,112 @@ def exchange_all_to_all(blocks: torch.Tensor, group, n: int,
     _refuse_cuda_over_gloo(blocks, group, "all_to_all")
     blocks = blocks.contiguous()
     out = torch.empty_like(blocks)
-    if blocks.is_complex():
-        dist.all_to_all_single(torch.view_as_real(out),
-                               torch.view_as_real(blocks), group=group)
-    else:
-        dist.all_to_all_single(out, blocks, group=group)
+    with trace_range(EXCHANGE_PREFIX + "all_to_all"):
+        if blocks.is_complex():
+            dist.all_to_all_single(torch.view_as_real(out),
+                                   torch.view_as_real(blocks), group=group)
+        else:
+            dist.all_to_all_single(out, blocks, group=group)
     return out
 
 
-def _not_ported(name: str):
-    def exchange(blocks, group, n, block):
-        raise NotImplementedError(
-            f"transpose method {name!r} is not available in "
-            f"cudecomp_tpu_torch yet; use 'all_to_all'")
-    exchange.__name__ = f"exchange_{name}"
-    return exchange
+def _ring_exchange(blocks: torch.Tensor, group, n: int, block: int,
+                   steps) -> torch.Tensor:
+    """Shared scaffold of every per-peer (ring-style) exchange.
+
+    ``steps`` is a list of ``(sigma, sigma_inv)`` pairs: each step is a
+    permutation ``j -> sigma(j)`` of the group ranks (``sigma_inv`` its
+    inverse).  At each step every rank sends the block destined for
+    ``sigma(me)`` and stores the block it receives under its sender's
+    index ``sigma_inv(me)``; the self block is a local copy.  The block
+    contract lives here only, so that the increment, XOR and two-tier
+    schedules cannot drift apart."""
+    if blocks.shape[0] != n * block:
+        raise ValueError(f"blocks have {blocks.shape[0]} rows, expected "
+                         f"{n} peers x {block}")
+    me = dist.get_rank(group) if n > 1 else 0
+    out = torch.empty_like(blocks)
+    out[me * block:(me + 1) * block] = blocks[me * block:(me + 1) * block]
+    for sigma, sigma_inv in steps:
+        send_peer, recv_peer = sigma(me), sigma_inv(me)
+        recv = ppermute_group(blocks[send_peer * block:(send_peer + 1) * block],
+                              group, [(j, sigma(j)) for j in range(n)])
+        out[recv_peer * block:(recv_peer + 1) * block] = recv
+    return out
+
+
+def exchange_ring(blocks: torch.Tensor, group, n: int,
+                  block: int) -> torch.Tensor:
+    """Ring (per-peer) exchange: step ``s`` sends block ``(me+s) % n`` to
+    peer ``(me+s) % n`` and receives peer ``(me-s) % n``'s block (the ring
+    order of ``getAlltoallPeerRanks``, ``common.h:533-577``)."""
+    steps = [(lambda j, s=s: (j + s) % n, lambda j, s=s: (j - s) % n)
+             for s in range(1, n)]
+    return _ring_exchange(blocks, group, n, block, steps)
+
+
+def exchange_ring_xor(blocks: torch.Tensor, group, n: int,
+                      block: int) -> torch.Tensor:
+    """Pairwise-exchange ring with the XOR peer schedule: step ``s`` swaps
+    blocks with peer ``me ^ s``, so each step is a symmetric pairwise
+    swap.  A group size that is no power of two takes the increment
+    ring."""
+    if n & (n - 1):
+        return exchange_ring(blocks, group, n, block)
+    # each XOR step is an involution: sigma == sigma_inv
+    steps = [(lambda j, s=s: j ^ s,) * 2 for s in range(1, n)]
+    return _ring_exchange(blocks, group, n, block, steps)
+
+
+def hier_schedule(n: int, group: int):
+    """Two-tier peer schedule (multi-level ring, ``common.h:533-577``).
+
+    Ranks along the dim decompose as ``j = g * group + k`` (g the host's
+    group, k the index within it).  Every step is the permutation ``j ->
+    ((g+dg) % G) * group + (k+dk) % group``; steps across groups come
+    first, interleaved with steps within a group, so that the slow
+    transfers are issued early and the fast ones fill in behind them (the
+    reference pairs each inter-group transfer with an intra-group one,
+    ``transpose.h:695-709``).
+
+    Returns the ``(dg, dk)`` displacement pairs covering all n-1 peers."""
+    if group <= 1 or n % group:
+        return [(0, s) for s in range(1, n)]
+    G = n // group
+    inter = [(dg, dk) for dg in range(1, G) for dk in range(group)]
+    intra = [(0, dk) for dk in range(1, group)]
+    steps = []
+    ii, jj = 0, 0
+    while ii < len(inter) or jj < len(intra):
+        if ii < len(inter):
+            steps.append(inter[ii])
+            ii += 1
+        if jj < len(intra):
+            steps.append(intra[jj])
+            jj += 1
+    return steps
+
+
+def exchange_ring_hier(blocks: torch.Tensor, group, n: int, block: int,
+                       npergroup: int = 1) -> torch.Tensor:
+    """Two-tier ring exchange: the contract of :func:`exchange_ring`, with
+    the peers in the order of :func:`hier_schedule` for fast groups of
+    ``npergroup`` consecutive ranks (``parallel.mesh.axis_group_size``),
+    so that each step stays within the hosts' groups or crosses them
+    all.  With one group this is the increment ring."""
+    if npergroup <= 1 or n % npergroup:
+        npergroup = n  # one group: (0, dk) displacements == increment ring
+    G = n // npergroup
+
+    def peer_of(dg, dk, j):
+        return (((j // npergroup + dg) % G) * npergroup
+                + (j % npergroup + dk) % npergroup)
+
+    steps = [(lambda j, dg=dg, dk=dk: peer_of(dg, dk, j),
+              lambda j, dg=dg, dk=dk: peer_of((-dg) % G, (-dk) % npergroup,
+                                              j))
+             for dg, dk in hier_schedule(n, npergroup)]
+    return _ring_exchange(blocks, group, n, block, steps)
 
 
 def exchange_pallas_a2a(blocks: torch.Tensor, group, n: int,
@@ -162,15 +261,31 @@ def exchange_pallas_a2a(blocks: torch.Tensor, group, n: int,
         return blocks
     if blocks.device.type == "cpu":
         return exchange_all_to_all(blocks, group, n, block)
-    return peer_kernels.a2a(blocks, group)
+    with trace_range(EXCHANGE_PREFIX + "pallas_a2a"):
+        return peer_kernels.a2a(blocks, group)
 
 
 EXCHANGES = {
     "all_to_all": exchange_all_to_all,
-    "ring": _not_ported("ring"),
-    "ring_xor": _not_ported("ring_xor"),
-    "ring_hier": _not_ported("ring_hier"),
+    "ring": exchange_ring,
+    "ring_xor": exchange_ring_xor,
+    "ring_hier": exchange_ring_hier,  # the engine passes npergroup=
     "pallas_a2a": exchange_pallas_a2a,
     # "ring_pipelined" restructures the whole transpose, not just the
-    # exchange; the transpose engine handles (and for now rejects) it
+    # exchange; the transpose engine holds it
 }
+
+
+def exchange_for(method_key: str, grid, dim_name: str):
+    """The exchange ``(blocks, group, n, block)`` that a transpose of
+    ``method_key`` runs over mesh dim ``dim_name`` of ``grid``: the ring's
+    for ``ring_pipelined`` (its steps are the ring's), ``ring_hier`` with
+    the dim's fast groups (``mesh.axis_group_size`` of the grid's
+    hosts)."""
+    if method_key == "ring_pipelined":
+        method_key = "ring"
+    exchange = EXCHANGES[method_key]
+    if method_key == "ring_hier":
+        exchange = partial(exchange, npergroup=axis_group_size(
+            grid.mesh, dim_name, grid.hosts))
+    return exchange

@@ -8,12 +8,20 @@ Here the process grid is a ``torch.distributed`` DeviceMesh with dims
 exchange over.  ``init_device_mesh`` takes only a shape (row-major ranks),
 so the mesh is built from an explicit rank tensor, which also covers the
 column-major order.
+
+The reference schedules a rank's peers in fast groups, the ranks that
+share a node (``npergroup``, ``include/internal/common.h:426-494``).  Here
+the fast group is the ranks of one host: :func:`world_hosts` gathers every
+rank's host name once, the grid carries them (``GridDescriptor.hosts``),
+and :func:`axis_group_size` reads them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import socket
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -51,6 +59,51 @@ def build_mesh(pdims: Tuple[int, int], device_type: str,
             f"process group has {world}; pass mesh= for a sub-mesh")
     return DeviceMesh(device_type, mesh_ranks(pdims, rank_order),
                       mesh_dim_names=tuple(axis_names))
+
+
+def world_hosts() -> Tuple[str, ...]:
+    """The host name of every rank of the default process group, by rank
+    (collective: every rank must call); this process's alone when there is
+    no process group."""
+    me = socket.gethostname()
+    if not dist.is_available() or not dist.is_initialized():
+        return (me,)
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, me)
+    return tuple(hosts)
+
+
+def axis_group_size(mesh, dim_name: str,
+                    hosts: Optional[Sequence[str]]) -> int:
+    """Fast group size along one mesh dim: how many consecutive ranks along
+    ``dim_name`` share a host (the reference's ``npergroup``), with
+    ``hosts`` the host name of each global rank (:func:`world_hosts`).
+
+    Returns the full dim size when the dim lies on one host, when the
+    grouping is irregular or differs between the positions along the
+    other dim (then a two-tier schedule would cross hosts in its "fast"
+    steps), or when ``hosts`` is None (a grid bound to a caller's mesh):
+    a flat ring."""
+    names = list(mesh.mesh_dim_names)
+    ranks = np.moveaxis(np.asarray(mesh.mesh.cpu()), names.index(dim_name), 0)
+    cols = ranks.reshape(ranks.shape[0], -1)
+    P = cols.shape[0]
+    if hosts is None:
+        return P
+    K = P
+    for c in range(cols.shape[1]):
+        group = [hosts[int(r)] for r in cols[:, c]]
+        k = next((i for i in range(1, P) if group[i] != group[0]), P)
+        if k == P or P % k:
+            return P
+        for g in range(P // k):
+            if len(set(group[g * k:(g + 1) * k])) != 1:
+                return P
+        if c == 0:
+            K = k
+        elif k != K:
+            return P
+    return K
 
 
 def check_cards(device: torch.device) -> None:

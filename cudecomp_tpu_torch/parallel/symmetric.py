@@ -40,6 +40,8 @@ from typing import Dict, Tuple
 import torch
 import torch.distributed as dist
 
+from cudecomp_tpu_torch.config import CannotRun
+
 PAD_BYTES = 4096      # csrc/peer.cu: kPadBytes
 MAX_RANKS = 64        # csrc/peer.cu: kMaxPeers
 GROW_ALIGN = 1 << 20  # receive regions grow in whole MiB
@@ -58,7 +60,7 @@ class Workspace:
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         if self.size > MAX_RANKS:
-            raise ValueError(f"a workspace serves at most {MAX_RANKS} ranks, "
+            raise CannotRun(f"a workspace serves at most {MAX_RANKS} ranks, "
                              f"the group has {self.size}")
         self.recv_bytes = recv_bytes
         self.exchanges = 0

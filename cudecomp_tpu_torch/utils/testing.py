@@ -16,6 +16,8 @@ it lives in the package so that spawned children can import it.
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
 
 import numpy as np
@@ -321,7 +323,61 @@ def _run_peer_case(case, rank_world):
                                      f"(periodic={periodic})")
 
 
-_KINDS = {"transpose": _run_case, "halo": _run_halo_case,
+def _run_ring_case(case, rank_world):
+    """The four transposes with a per-peer method (``ring``, ``ring_xor``,
+    ``ring_hier``, ``ring_pipelined``), each op with the case's halo
+    extents and padding in and out, bit-equal to the JAX shards; and the
+    block contract of every ring exchange over each sharded mesh dim,
+    equal to ``exchange_all_to_all``.  ``hosts`` (a host name per world
+    rank), when given, stands in for the mesh's hosts, so that
+    ``ring_hier`` takes its two-tier schedule."""
+    import torch.distributed as dist
+
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch.parallel import collectives as C
+    from cudecomp_tpu_torch.parallel import mesh as M
+    grid = ct.make_grid(ct.GridConfig.from_dict(case["config"]), "cpu")
+    if case.get("hosts"):
+        grid = dataclasses.replace(grid, hosts=tuple(case["hosts"]))
+    check = _checker(case, grid, rank_world)
+    he, pad = case["halo_extents"], case["padding"]
+    kw = dict(input_halo_extents=he, output_halo_extents=he,
+              input_padding=pad, output_padding=pad)
+    x_global = torch.from_numpy(case["field"])
+    buf = ct.scatter_global(grid, x_global, 0, halo_extents=he, padding=pad)
+    for name in _TRANSPOSES:
+        buf = getattr(ct, f"transpose_{name}")(grid, buf, **kw)
+        check(name, buf)
+    back = ct.gather_global(grid, buf, 0, halo_extents=he, padding=pad)
+    if not torch.equal(back, x_global):
+        raise AssertionError(f"{case['name']}: gathered round trip differs")
+
+    gen = torch.Generator().manual_seed(rank_world)
+    for pd, name in enumerate(grid.axis_names):
+        P = grid.pdims[pd]
+        if P == 1:
+            continue
+        group = grid.group(name)
+        npg = M.axis_group_size(grid.mesh, name, grid.hosts)
+        for dtype in (torch.float64, torch.complex64):
+            blocks = torch.randn((3 * P, 2, 5), generator=gen, dtype=dtype)
+            want = C.exchange_all_to_all(blocks, group, P, 3)
+            for what, got in (
+                    ("ring", C.exchange_ring(blocks, group, P, 3)),
+                    ("ring_xor", C.exchange_ring_xor(blocks, group, P, 3)),
+                    (f"ring_hier/{npg}", C.exchange_ring_hier(
+                        blocks, group, P, 3, npergroup=npg)),
+                    ("ring_hier/2", C.exchange_ring_hier(
+                        blocks, group, P, 3, npergroup=2))):
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{case['name']}: {what} over {name} (P = {P}) "
+                        f"breaks the block contract on rank {rank_world}")
+    dist.barrier()
+
+
+_KINDS = {"transpose": _run_case, "ring": _run_ring_case,
+          "halo": _run_halo_case,
           "stencil": _run_stencil_case, "cg": _run_cg_case,
           "spectral": _run_spectral_case, "peer": _run_peer_case}
 
@@ -361,7 +417,10 @@ def multirank_worker(rank: int, world: int, init_file: str, cases) -> None:
     (the kernel exchanges' path on a config with ``PALLAS_A2A`` and
     ``HaloMethod.PALLAS``: the four transposes and the c2c FFT of
     ``field``/``cfield``, the halo update of ``field`` with ``axis``,
-    ``halo_extents`` and ``periods``, and K2's and K3's plans).  A case
+    ``halo_extents`` and ``periods``, and K2's and K3's plans) or ``ring``
+    (the four transposes of ``field`` with a per-peer method, each with
+    ``halo_extents`` and ``padding`` in and out, and the rings' block
+    contract; ``hosts`` may stand in for the mesh's hosts).  A case
     with ``expect_error`` instead checks that its op
     (the X->Y transpose, or ``laplacian7`` on pencil ``axis`` for a stencil
     case) raises ValueError with that text.
@@ -545,3 +604,348 @@ def run_card_ranks(body, world: int, init_file: str, args, timeout: float,
     that run ``body(rank, *args)``; ``body`` is a module-level function."""
     run_ranks(card_ranks_worker, world,
               (world, init_file, body) + tuple(args), timeout, what)
+
+
+# -- the autotuner's protocol and the performance report on gloo ranks ----------
+
+def _ok(cond, what=None) -> None:
+    """Raise AssertionError with ``what`` unless ``cond``."""
+    if not cond:
+        raise AssertionError(what)
+
+
+def _same_on_every_rank(value, what: str) -> None:
+    import torch.distributed as dist
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, value)
+    if any(v != seen[0] for v in seen):
+        raise AssertionError(f"{what} differs between the ranks: {seen}")
+
+
+def _expect_raises(exc, text, fn, what):
+    try:
+        fn()
+    except exc as e:
+        if text not in str(e):
+            raise AssertionError(f"{what}: {e!r} does not say {text!r}")
+    else:
+        raise AssertionError(f"{what}: no {exc.__name__}")
+
+
+def _check_autotune_protocol(rank: int) -> None:
+    """The cases of ``tests/test_autotune.py`` on the CPU ranks of a gloo
+    world of 4: the sweep end to end, fixed pdims, the halo phase,
+    ``make_grid``, the skip-threshold probe, a halo candidate that cannot
+    run, the per-op weights' exact sums, ``grid_mode='halo'``, the trial
+    payloads, the error of a sweep in which every candidate cannot run,
+    any other error stopping the sweep, and the default candidates by
+    device and backend; every rank must choose alike."""
+    import importlib
+
+    import torch.distributed as dist
+
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch import performance as perf
+    from cudecomp_tpu_torch.config import (AutotuneOptions, CannotRun,
+                                           GridConfig, HaloMethod,
+                                           TransposeMethod)
+
+    # the module: the package's name ``autotune`` is the function
+    at = importlib.import_module("cudecomp_tpu_torch.autotune")
+    TM, HM = TransposeMethod, HaloMethod
+    cube = GridConfig(gdims=(16, 16, 16))
+
+    def tune(cfg=cube, **kw):
+        res = at.autotune(cfg, "cpu", AutotuneOptions(**kw))
+        _same_on_every_rank((res.best_pdims, res.best_method,
+                             res.best_halo_method,
+                             res.grid.config.transpose_axis_contiguous),
+                            f"the choice of autotune({kw})")
+        return res
+
+    res = at.autotune(cube, "cpu", AutotuneOptions(n_warmup=1, n_trials=2),
+                      dtype=torch.complex64)
+    _same_on_every_rank((res.best_pdims, res.best_method), "the choice")
+    _ok(res.best_pdims in ((1, 4), (2, 2), (4, 1)), res.best_pdims)
+    _ok(res.grid.config.pdims == res.best_pdims)
+    _ok(res.grid.config.transpose_method == res.best_method)
+    tried = {(t.pdims, t.method) for t in res.trials if not t.skipped}
+    _ok(tried == {(p, m.value) for p in ((1, 4), (2, 2), (4, 1))
+                  for m in (TM.ALL_TO_ALL, TM.RING, TM.RING_XOR,
+                            TM.RING_PIPELINED)}, tried)
+    _ok("selected" in res.report())
+
+    res = tune(GridConfig(gdims=(16, 16, 16), pdims=(2, 2)), n_warmup=1,
+               n_trials=2)
+    _ok(res.best_pdims == (2, 2))
+    _ok({t.pdims for t in res.trials} == {(2, 2)})
+
+    res = tune(n_warmup=1, n_trials=2, autotune_halo_method=True,
+               halo_extents=(1, 1, 1))
+    _ok(res.best_halo_method == HM.PPERMUTE and res.halo_trials)
+
+    grid = ct.make_grid(cube, "cpu", autotune_options=AutotuneOptions(
+        n_warmup=0, n_trials=1))
+    _ok(grid.pdims[0] * grid.pdims[1] == 4)
+    _expect_raises(ValueError, "explicit mesh", lambda: ct.make_grid(
+        cube, "cpu", mesh=grid.mesh, autotune_options=AutotuneOptions()),
+        "make_grid with a mesh and autotuning")
+
+    res = tune(n_warmup=0, n_trials=1, autotune_layouts=True,
+               methods=(TM.ALL_TO_ALL,))
+    tags = {t.method for t in res.trials}
+    _ok(tags == {"all_to_all/ac=0", "all_to_all/ac=1"}, tags)
+
+    # the probe: one warm-up call and one trial on the candidate's own
+    # input; a candidate past the threshold runs nothing more
+    calls = []
+    real_time_fn = perf.time_fn
+
+    def counting(fn, *args, n_warmup, n_trials, **kw):
+        calls.append((n_warmup, n_trials))
+        return real_time_fn(fn, *args, n_warmup=n_warmup,
+                            n_trials=n_trials, **kw)
+
+    g41 = ct.make_grid(GridConfig(gdims=(16, 16, 16), pdims=(4, 1)), "cpu")
+    perf.time_fn = counting
+    try:
+        times, skipped = at._time_roundtrip(g41, torch.float32, (1.0,) * 4,
+                                            2, 3, 1e-12)
+        _ok(skipped and len(times) == 1 and calls == [(1, 1)], calls)
+        calls.clear()
+        times, skipped = at._time_roundtrip(g41, torch.float32, (1.0,) * 4,
+                                            2, 3, 1e12)
+        _ok(not skipped and len(times) == 3, times)
+        _ok(calls == [(1, 1), (0, 3)], calls)
+    finally:
+        perf.time_fn = real_time_fn
+
+    # the weights' exact sums, on fake per-part times 0.1, 0.2, ...
+    def fake(fn, *args, n_warmup, n_trials, **kw):
+        calls.append(1)
+        return [0.1 * len(calls)] * n_trials
+
+    g22 = ct.make_grid(GridConfig(gdims=(16, 16, 16), pdims=(2, 2)), "cpu")
+    perf.time_fn = fake
+    try:
+        for weights, parts, want in (((8.0, 4.0, 2.0, 1.0), 4, 2.6),
+                                     ((4.0, 4.0, 1.0, 1.0), 2, 0.6),
+                                     ((0.0, 0.0, 0.0, 1.0), 1, 0.1)):
+            calls.clear()
+            times, skipped = at._time_roundtrip(g22, torch.float32, weights,
+                                                1, 2, None)
+            _ok(len(calls) == parts and not skipped, (weights, calls))
+            _ok(all(abs(t - want) < 1e-12 for t in times), (weights,
+                                                            times))
+    finally:
+        perf.time_fn = real_time_fn
+
+    # a halo candidate that cannot run is skipped with its error; one that
+    # fails otherwise (a kernel that does not build or launch) stops the
+    # sweep, in either halo phase
+    real_time_halo = at._time_halo
+
+    def halo_boom(exc):
+        def run(grid, *a, **k):
+            if grid.config.halo_method == HM.PALLAS:
+                raise exc
+            return real_time_halo(grid, *a, **k)
+        return run
+
+    halo_cfg = GridConfig(gdims=(16, 16, 16), pdims=(2, 2))
+    halo_kw = dict(n_warmup=0, n_trials=1, autotune_halo_method=True,
+                   halo_extents=(1, 1, 1),
+                   halo_methods=(HM.PPERMUTE, HM.PALLAS),
+                   methods=(TM.ALL_TO_ALL,))
+    at._time_halo = halo_boom(CannotRun("halo kaboom"))
+    try:
+        res = tune(halo_cfg, **halo_kw)
+    finally:
+        at._time_halo = real_time_halo
+    _ok(res.best_halo_method == HM.PPERMUTE)
+    bad = [t for t in res.halo_trials if t.skipped]
+    _ok(len(bad) == 1 and "halo kaboom" in bad[0].error, res.halo_trials)
+    _ok("halo kaboom" in res.report())
+    for exc in (RuntimeError("K3 launch failed"), ValueError("a bug")):
+        at._time_halo = halo_boom(exc)
+        try:
+            for mode in ("transpose", "halo"):
+                _expect_raises(type(exc), str(exc), lambda: at.autotune(
+                    halo_cfg, "cpu", AutotuneOptions(grid_mode=mode,
+                                                     **halo_kw)),
+                    f"a halo candidate raising {exc!r} ({mode} mode)")
+        finally:
+            at._time_halo = real_time_halo
+
+    res = tune(n_warmup=1, n_trials=2, grid_mode="halo",
+               halo_extents=(1, 1, 1), autotune_halo_method=True)
+    _ok(res.grid.config.halo_method == res.best_halo_method)
+    _ok(len({t.pdims for t in res.halo_trials}) == 3)
+    _ok({t.pdims for t in res.trials} == {res.best_pdims})
+    res = tune(GridConfig(gdims=(16, 16, 16), halo_method=HM.PPERMUTE),
+               n_warmup=1, n_trials=1, grid_mode="halo",
+               halo_extents=(1, 1, 1))
+    _ok({t.method for t in res.halo_trials} == {"ppermute"})
+    _expect_raises(ValueError, "halo_extents", lambda: at.autotune(
+        cube, "cpu", AutotuneOptions(grid_mode="halo")), "grid_mode='halo'")
+
+    he, pads = ((1, 1, 1),) * 4, ((1, 0, 0),) * 4
+    for weights in ((1.0,) * 4, (2.0, 1.0, 1.0, 2.0)):
+        res = tune(n_warmup=1, n_trials=1, transpose_op_weights=weights,
+                   transpose_input_halo_extents=he,
+                   transpose_output_halo_extents=he,
+                   transpose_input_padding=pads,
+                   transpose_output_padding=pads)
+        _ok(res.best_time_s > 0)
+    _expect_raises(ValueError, "do not chain", lambda: at.autotune(
+        cube, "cpu", AutotuneOptions(transpose_input_halo_extents=he)),
+        "payloads that do not chain")
+    res = tune(GridConfig(gdims=(16, 16, 16), pdims=(2, 2)), n_warmup=0,
+               n_trials=1, n_components=1, dtype="float32",
+               methods=(TM.ALL_TO_ALL,), autotune_halo_method=True,
+               halo_extents=(1, 1, 1))
+    _ok(res.best_method == TM.ALL_TO_ALL and res.halo_trials)
+
+    # every candidate cannot run: the first error is chained and recorded
+    real_rt = at._time_roundtrip
+
+    def boom(grid, *a, **k):
+        raise CannotRun("kaboom-inner")
+
+    at._time_roundtrip = boom
+    try:
+        _expect_raises(RuntimeError, "every candidate was skipped; first "
+                       "failure: CannotRun('kaboom-inner')",
+                       lambda: at.autotune(cube, "cpu", AutotuneOptions(
+                           n_warmup=0, n_trials=1)),
+                       "a sweep in which every candidate cannot run")
+    finally:
+        at._time_roundtrip = real_rt
+
+    # a candidate that fails otherwise stops the sweep with its own error,
+    # even where another method could win (a kernel that does not build or
+    # launch never gives way to the plain version)
+    for exc in (RuntimeError("K2 launch failed"), ValueError("a bug")):
+        def fails(grid, *a, exc=exc, **k):
+            if grid.config.transpose_method == TM.RING:
+                raise exc
+            return real_rt(grid, *a, **k)
+
+        at._time_roundtrip = fails
+        try:
+            _expect_raises(type(exc), str(exc), lambda: at.autotune(
+                cube, "cpu", AutotuneOptions(
+                    n_warmup=0, n_trials=1,
+                    methods=(TM.ALL_TO_ALL, TM.RING))),
+                f"a candidate raising {exc!r}")
+        finally:
+            at._time_roundtrip = real_rt
+
+    # the default candidates follow the device and the backend (gloo: the
+    # CPU's); a method the knob names is tried even where it cannot run
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    hosts = ("h",) * dist.get_world_size()
+    opts = AutotuneOptions()
+    _ok(at._transpose_method_candidates(opts, cpu, hosts) == [
+        TM.ALL_TO_ALL, TM.RING, TM.RING_XOR, TM.RING_PIPELINED])
+    _ok(at._transpose_method_candidates(opts, cpu, ("a", "a", "b", "b")
+                                        )[-1] == TM.RING_HIER)
+    _ok(at._transpose_method_candidates(opts, cuda, hosts) == [
+        TM.PALLAS_A2A])
+    _ok(at._halo_method_candidates(opts, cpu) == [HM.PPERMUTE])
+    _ok(at._halo_method_candidates(opts, cuda) == [HM.PALLAS])
+    os.environ[at.METHODS_KNOB] = "ring,pallas_a2a"
+    try:
+        _ok(at._transpose_method_candidates(opts, cuda, hosts) == [
+            TM.RING, TM.PALLAS_A2A])
+        real_rt = at._time_roundtrip
+
+        def cannot(grid, *a, **k):
+            if grid.config.transpose_method == TM.RING:
+                raise CannotRun("ppermute of a cuda tensor over gloo")
+            return real_rt(grid, *a, **k)
+
+        at._time_roundtrip = cannot
+        try:
+            res = tune(GridConfig(gdims=(16, 16, 16), pdims=(2, 2)),
+                       n_warmup=0, n_trials=1)
+        finally:
+            at._time_roundtrip = real_rt
+        _ok(res.best_method == TM.PALLAS_A2A)
+        (ring,) = [t for t in res.trials if t.method == "ring"]
+        _ok(ring.skipped and "over gloo" in ring.error, ring)
+        os.environ[at.METHODS_KNOB] = "^pallas_a2a"
+        _ok(at._transpose_method_candidates(opts, cuda, hosts) == [
+            TM.PALLAS_A2A])  # nothing left: the knob is ignored
+    finally:
+        del os.environ[at.METHODS_KNOB]
+
+
+def _check_performance(rank: int) -> None:
+    """On the CPU ranks of a gloo world of 4: ``segment_roundtrip`` at
+    pdims (2, 2) and (1, 4), the cross-rank reduction of the report's
+    rows, and a profiled round trip whose exchanges count as
+    communication."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch import performance as perf
+    from cudecomp_tpu_torch.config import GridConfig
+
+    for pdims in ((2, 2), (1, 4)):
+        grid = ct.make_grid(GridConfig(gdims=(16, 16, 16), pdims=pdims),
+                            "cpu")
+        seg = perf.segment_roundtrip(grid, torch.float32, iters=2,
+                                     n_warmup=1, n_trials=1, record=False)
+        _ok(set(seg) == {"total_ms", "a2a_ms", "local_ms", "a2a_gbps"})
+        _ok(seg["total_ms"] > 0 and 0 < seg["a2a_ms"] <= seg["total_ms"])
+        _ok(abs(seg["total_ms"] - seg["a2a_ms"] - seg["local_ms"]) < 1e-9)
+        _ok(seg["a2a_gbps"] > 0)
+
+    reg = perf.PerfRegistry()
+    for ms in (1.0, 2.0 + rank, 4.0 + 2 * rank):  # the first is discarded
+        reg.record(("op", (16, 16, 16)), ms, 1024)
+    reg.record(("warm only",), 1.0)  # no rank has samples past it
+    (row,) = reg.rows(cross_host=True)
+    means = [3.0 + 1.5 * r for r in range(4)]
+    want = {"config": "op/(16, 16, 16)", "count": 8,
+            "avg_ms": sum(means) / 4, "min_ms": 2.0, "max_ms": 10.0,
+            "std_ms": sum((2.0 + r) / 2 for r in range(4)) / 4}
+    for k, v in want.items():
+        _ok(row[k] == v, (k, row[k], v))
+    (local,) = reg.rows()
+    _ok(local["count"] == 2 and local["avg_ms"] == means[rank])
+
+    grid = ct.make_grid(GridConfig(gdims=(16, 16, 16), pdims=(2, 2)), "cpu")
+    x = torch.zeros(grid.buffer_shape(0))
+    with tempfile.TemporaryDirectory() as d:
+        with perf.profile_trace(d):
+            ct.transpose_y_to_x(grid, ct.transpose_x_to_y(grid, x))
+        a = perf.device_op_attribution(d)
+    _ok(a["comm_ms"] > 0 and a["local_ms"] > 0, a)
+    _ok("cudecomp_tpu_torch.exchange.all_to_all" in a["ranges"], a)
+    _ok(abs(a["total_ms"] - a["comm_ms"] - a["local_ms"]) < 1e-9)
+    dist.barrier()
+
+
+def protocol_worker(rank: int, world: int, init_file: str,
+                    checks) -> None:
+    """One CPU rank of a gloo world (``file://`` init): runs each named
+    check of ``_check_autotune_protocol`` and ``_check_performance``."""
+    import torch.distributed as dist
+
+    import cudecomp_tpu_torch as ct
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        for name in checks:
+            {"autotune": _check_autotune_protocol,
+             "performance": _check_performance}[name](rank)
+        dist.barrier()
+    finally:
+        ct.clear_plan_caches()
+        dist.destroy_process_group()

@@ -205,8 +205,14 @@ def test_single_rank_grid_matches_jax():
 
 
 def test_make_grid_errors():
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        ct.make_grid(ct.GridConfig(gdims=(8, 8, 8)), "cpu")
+    # pdims (0, 0) runs the autotuner, which takes no caller mesh
+    opts = ct.AutotuneOptions(n_warmup=0, n_trials=1)
+    grid = ct.make_grid(ct.GridConfig(gdims=(8, 8, 8)), "cpu",
+                        autotune_options=opts)
+    assert grid.pdims == (1, 1) and grid.mesh is None
+    with pytest.raises(ValueError, match="explicit mesh"):
+        ct.make_grid(ct.GridConfig(gdims=(8, 8, 8)), "cpu", mesh=object(),
+                     autotune_options=opts)
     with pytest.raises(ValueError, match="DeviceMesh"):
         ct.GridDescriptor(config=ct.GridConfig(gdims=(8, 8, 8), pdims=(2, 2)),
                           device="cpu")

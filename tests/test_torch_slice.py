@@ -253,6 +253,45 @@ def _jax_peer_case(name, axis, he, periods, **kw):
                 shards=shards)
 
 
+def _jax_ring_case(name, method, he, pad, hosts=None, **kw):
+    """The four transposes with a per-peer method in the JAX package, each
+    op with halo extents ``he`` and padding ``pad`` in and out."""
+    jcfg, grid = _jax_grid(transpose_method=method, **kw)
+    f = np.random.default_rng(zlib.crc32(name.encode())).standard_normal(
+        jcfg.gdims)
+    opkw = dict(input_halo_extents=he, output_halo_extents=he,
+                input_padding=pad, output_padding=pad)
+    buf = cd.scatter_global(grid, f, 0, halo_extents=he, padding=pad)
+    shards = {}
+    for op, axis in (("x_to_y", 1), ("y_to_z", 2), ("z_to_y", 1),
+                     ("y_to_x", 0)):
+        buf = getattr(cd, f"transpose_{op}")(grid, buf, **opkw)
+        local = jgeo.pencil_buffer_shape(jcfg, axis, he, pad)
+        shards[op] = {tuple(int(c) for c in coords_of_shard_index(
+            grid, axis, s.index, local)): np.asarray(s.data)
+            for s in buf.addressable_shards}
+    return dict(name=name, kind="ring", config=_spec(jcfg), field=f,
+                halo_extents=he, padding=pad, hosts=hosts, shards=shards)
+
+
+_RINGS = ("ring", "ring_xor", "ring_hier", "ring_pipelined")
+# each method meets both sizes and both payloads over its process grids
+_RING_SHAPES = (((16, 16, 16), None), ((66, 70, 74), ((1, 1, 2), (2, 0, 1))),
+                ((66, 70, 74), None), ((16, 16, 16), ((2, 1, 1), (0, 3, 1))))
+
+
+def _ring_cases(pdims_list, hosts):
+    cases = []
+    for m, method in enumerate(_RINGS):
+        for d, pdims in enumerate(pdims_list):
+            gdims, payload = _RING_SHAPES[(m + d) % 4]
+            he, pad = payload or ((0, 0, 0), (0, 0, 0))
+            cases.append(_jax_ring_case(
+                f"{method}-{pdims[0]}x{pdims[1]}-{gdims[0]}", method, he,
+                pad, hosts=hosts, gdims=gdims, pdims=pdims))
+    return cases
+
+
 def test_four_gloo_ranks_match_jax_shards(tmp_path):
     ac = dict(transpose_axis_contiguous=(True, True, True))
     cases = [
@@ -303,5 +342,16 @@ def test_four_gloo_ranks_match_jax_shards(tmp_path):
         _jax_peer_case("peer-4x1", 2, (2, 1, 1), (True, True, False),
                        gdims=(9, 10, 11), pdims=(4, 1)),
     ]
+    # the per-peer methods; two ranks per host, so that ring_hier runs its
+    # two-tier schedule over the dims of 4 ranks
+    cases += _ring_cases(((2, 2), (1, 4), (4, 1)), ("h0", "h0", "h1", "h1"))
     run_ranks(multirank_worker, 4, (4, str(tmp_path / "pg_init"), cases),
               300, "the 4-rank gloo run")
+
+
+def test_three_gloo_ranks_rings_match_jax_shards(tmp_path):
+    # P = 3: ring_xor takes the increment ring, the two-tier schedule
+    # finds no even grouping of hosts (a, a, b) and runs flat
+    cases = _ring_cases(((1, 3), (3, 1)), ("a", "a", "b"))
+    run_ranks(multirank_worker, 3, (3, str(tmp_path / "pg_init"), cases),
+              300, "the 3-rank gloo run")
