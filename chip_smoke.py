@@ -114,10 +114,33 @@ Phases, each of which raises on failure (nothing is caught):
      (segment_roundtrip's); the performance report of 3 such round trips
      (each transpose counted 3 times); segment_roundtrip (no exchange
      time, the total within 10% of the four K1 launches timed alone on
-     the round trip's pencils).
+     the round trip's pencils);
+ 11. the rest of the library on the card: the basic-usage flow through
+     ``compat`` at 512^3 c64, pdims (1, 1), axis-contiguous (its four
+     transposes 4 K1 launches, bit-equal to the native ops;
+     cudecompUpdateHalosX width 1 periodic on 512^3 f32 bit-equal to
+     update_halos; the workspace sizes equal geometry's; a 128^3 grid with
+     pdims (0, 0) and mapped options copies its winner back into the
+     struct); autotune_fft at 256^3 c2c split-complex (both candidates gate
+     under 5e-4 and are timed, K5 launching in the K5 trials only; the
+     winner's forward launches K5 if and only if K5 won and lies within
+     1e-5 rel L2 of complex128 fftn) and at 512^3 (the K5 candidate refused
+     by the shape gate, cuFFT winning); the gradients: the backward of the
+     512^3 c64 axis-contiguous transpose_x_to_y is one K1 launch, bit-equal
+     to permute().contiguous()'s autograd, and the backward of K5 forward
+     and inverse at (129, 256, 256) one K5 launch each, within 1e-5 rel L2
+     of torch.fft's complex128 autograd, each timed beside its forward (and
+     in phase 9's ranks: the backward of a PALLAS_A2A transpose on the
+     66 x 70 x 74 grid at pdims (2, 2) is one counted K2 launch, bit-equal
+     to the reverse transpose of the cotangent, and HaloMethod.PALLAS with
+     grad raises ValueError); the dryrun: one step of entry("cuda") and
+     dryrun_multichip(4, "cuda") on the shared card, every rank running
+     pallas_a2a and HaloMethod.PALLAS and refusing exactly the stages that
+     move CUDA tensors over gloo; the six examples at their default sizes
+     on the card, P = 1, each timed.
 
-Before each path (5, 6, 7, the four ranks of 9 and their autotuner, and
-10) every launch count is set to 0 (in 5, 6 and 7 the loaded libraries
+Before each path (5, 6, 7, the four ranks of 9 and their autotuner, 10
+and each part of 11) every launch count is set to 0 (in 5, 6 and 7 the loaded libraries
 are dropped too, so the path loads them as a fresh process does, and K0
 runs inside it; the ranks of 9 are fresh processes); the counts are read
 just after.  The line
@@ -720,7 +743,8 @@ def dft2_kernel_checks(torch, D, gen):
 
 
 def rel_l2(torch, a, b):
-    a, b = a.double(), b.double()
+    a, b = (torch.view_as_real(t.to(torch.complex128)) if t.is_complex()
+            else t.double() for t in (a, b))
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
@@ -1031,12 +1055,54 @@ def peer_worker(rank, out_dir):
                              f"the card and reported {reported} CUDA "
                              f"launches; expected 2 waits and 2 moves")
     testing.check_workspace_growth(torch.device(DEVICE), seed=3)
+    res["grad"] = grad_ranks(torch, ct, PK, rank, gen)
     res["k2_library"] = gloo_a2a_time(torch, dist, fgrid, gen)
     res["tune"] = tune_ranks(torch, dist, ct, rank)
     if rank == 0:
         res["mps"] = bench.mps_active()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
         json.dump(res, fh)
+
+
+def grad_ranks(torch, ct, PK, rank, gen):
+    """Phase 9's gradients, in one of the four ranks: the backward of a
+    PALLAS_A2A x->y transpose on the PEER_SMALL grid at pdims (2, 2) is K2
+    launches (counted between a reset and a read) and bit-equal to the
+    reverse transpose of the cotangent; HaloMethod.PALLAS on a tensor that
+    requires grad raises ValueError naming HaloMethod.PPERMUTE."""
+    cfg = ct.GridConfig(gdims=PEER_SMALL, pdims=(2, 2),
+                        transpose_method=ct.TransposeMethod.PALLAS_A2A,
+                        halo_method=ct.HaloMethod.PALLAS)
+    grid = ct.make_grid(cfg, DEVICE)
+    x = torch.view_as_complex(torch.randn(grid.buffer_shape(0) + (2,),
+                                          generator=gen, device=DEVICE))
+    c = torch.view_as_complex(torch.randn(grid.buffer_shape(1) + (2,),
+                                          generator=gen, device=DEVICE))
+    xr = x.clone().requires_grad_(True)
+    y = ct.transpose_x_to_y(grid, xr)
+    PK.reset_launch_counts()
+    (g,) = torch.autograd.grad(y, xr, c)
+    torch.cuda.synchronize()
+    bwd = PK.a2a_launch_count
+    want = ct.transpose_y_to_x(grid, c)
+    if bwd != 1 or not torch.equal(g, want):
+        raise AssertionError(f"rank {rank}: the PALLAS_A2A transpose's "
+                             f"backward launched K2 {bwd} times (expected "
+                             f"1), bit-equal to the reverse transpose: "
+                             f"{torch.equal(g, want)}")
+    he = (1, 1, 1)
+    h = torch.randn(grid.buffer_shape(0, he), generator=gen, device=DEVICE,
+                    requires_grad=True)
+    try:
+        ct.update_halos(grid, h.clone(), 0, he, (True, True, True))
+    except ValueError as e:
+        if "HaloMethod.PPERMUTE" not in str(e):
+            raise
+        refusal = str(e)
+    else:
+        raise AssertionError(f"rank {rank}: HaloMethod.PALLAS with grad "
+                             f"did not raise")
+    return {"k2_backward": bwd, "refusal": refusal}
 
 
 def k2_against_plain(torch, dist, PK, grid, xg, shape):
@@ -1489,6 +1555,287 @@ def autotune_worker(rank, out_path):
         json.dump(autotune_phase(torch, ct, K, perf), fh)
 
 
+# -- phase 11: compat, autotune_fft, gradients, the dryrun and the examples -----
+
+COMPAT_N, HALO_N = 512, 512   # the compat flow's c64 and f32 fields
+FFT_TUNE_N = (256, 512)       # autotune_fft's grids: K5 takes 256 only
+K5_GRAD_SHAPE = (129, 256, 256)
+EXAMPLES = ("basic_usage", "fft_autotune", "checkpoint_restart",
+            "heat3d_stencil", "spectral_ops", "ns_projection")
+# the stages a CUDA grid over gloo refuses: they move CUDA tensors over gloo
+GLOO_ON_CUDA = {"all_to_all", "ring", "ring_xor", "ring_pipelined",
+                "ring_hier", "halo_ppermute", "diffusion_step_halo_map",
+                "uneven_ring", "projection_step"}
+
+
+def compat_phase(torch, ct, K, gen):
+    """The basic-usage flow through ``compat`` at 512^3 c64, pdims (1, 1),
+    axis-contiguous: its four transposes are 4 K1 launches, bit-equal to
+    the native ops; cudecompUpdateHalosX on 512^3 f32 bit-equal to
+    update_halos; the workspace sizes equal geometry's; and a pdims (0, 0)
+    grid of 128^3 with mapped options copies its winner back."""
+    from cudecomp_tpu_torch import compat as cc, geometry
+    handle = cc.cudecompInit(device=DEVICE)
+    config = cc.cudecompGridDescConfigSetDefaults()
+    config.gdims, config.pdims = (COMPAT_N,) * 3, (1, 1)
+    config.transpose_axis_contiguous = (True, True, True)
+    config.transpose_comm_backend = cc.CUDECOMP_TRANSPOSE_COMM_MPI_A2A
+    grid = cc.cudecompGridDescCreate(handle, config)
+    x = complex_field(torch, grid.buffer_shape(0), gen)
+    native = x
+    for name in ("x_to_y", "y_to_z", "z_to_y", "y_to_x"):
+        native = getattr(ct, f"transpose_{name}")(grid, native)
+    torch.cuda.synchronize()
+    K.reset_launch_count()
+    out, steps = x, []
+    for name in ("XToY", "YToZ", "ZToY", "YToX"):
+        out = getattr(cc, f"cudecompTranspose{name}")(handle, grid, out)
+        steps.append(out)
+    torch.cuda.synchronize()
+    k1 = K.launch_count
+    if k1 != 4 or not (torch.equal(out, native) and torch.equal(out, x)):
+        raise AssertionError(f"compat transposes: {k1} K1 launches "
+                             f"(expected 4), bit-equal to the native ops "
+                             f"{torch.equal(out, native)}")
+    del steps, native, out, x
+    torch.cuda.empty_cache()
+    he = (1, 1, 1)
+    h = torch.randn(grid.buffer_shape(0, he), generator=gen, device=DEVICE)
+    want = ct.update_halos(grid, h.clone(), 0, he, (True, True, True))
+    got = cc.cudecompUpdateHalosX(handle, grid, h, halo_extents=he,
+                                  halo_periods=(True, True, True))
+    if got is not h or not torch.equal(got, want):
+        raise AssertionError("cudecompUpdateHalosX differs from update_halos")
+    del h, want, got
+    ws = {"transpose": [cc.cudecompGetTransposeWorkspaceSize(handle, grid, eb)
+                        for eb in (4, 8)],
+          "halo": cc.cudecompGetHaloWorkspaceSize(handle, grid, 0, he, 4)}
+    if ws != {"transpose": [geometry.transpose_workspace_size(grid.config, eb)
+                            for eb in (4, 8)],
+              "halo": geometry.halo_workspace_size(grid.config, 0, he,
+                                                   elem_bytes=4)}:
+        raise AssertionError(f"compat workspace sizes {ws}")
+    tuned = cc.cudecompGridDescConfigSetDefaults()
+    tuned.gdims, tuned.pdims = (128, 128, 128), (0, 0)
+    opts = cc.cudecompGridDescAutotuneOptionsSetDefaults()
+    opts.n_warmup_trials, opts.n_trials = 1, 2
+    opts.autotune_transpose_backend = True
+    opts.disable_nvshmem_backends = True
+    tgrid = cc.cudecompGridDescCreate(handle, tuned, opts)
+    if (tuple(tuned.pdims) != tuple(tgrid.pdims)
+            or tuned.transpose_comm_backend != cc._REVERSE_TRANSPOSE_MAP[
+                tgrid.config.transpose_method]):
+        raise AssertionError(f"compat autotune copied back {tuned}")
+    cc.cudecompFinalize(handle)
+    torch.cuda.empty_cache()
+    return {"k1": k1, "ws": ws, "tuned": (tuple(tuned.pdims),
+                                          tgrid.config.transpose_method.value)}
+
+
+def autotune_fft_phase(torch, ct, D):
+    """autotune_fft at 256^3 c2c split-complex, pdims (1, 1): both
+    candidates gate and are timed, K5 launching in the K5 trials only, the
+    returned plan's forward launching K5 if and only if K5 won and within
+    1e-5 rel L2 of complex128 fftn; at 512^3 the K5 candidate is refused
+    by the shape gate and cuFFT wins."""
+    from cudecomp_tpu_torch.ops import fft as F
+    by_policy = {False: 0, True: 0}
+    orig = {n: getattr(F.DistributedFFT, n)
+            for n in ("forward_planes", "inverse_planes")}
+
+    def attributed(name):
+        def call(self, v):
+            n0 = D.launch_count
+            out = orig[name](self, v)
+            by_policy[bool(self.fused2)] += D.launch_count - n0
+            return out
+        return call
+
+    res = {}
+    for n in FFT_TUNE_N:
+        grid = ct.make_grid(ct.GridConfig(gdims=(n, n, n), pdims=(1, 1)),
+                            DEVICE)
+        D.reset_launch_count()
+        by_policy.update({False: 0, True: 0})
+        for name in orig:
+            setattr(F.DistributedFFT, name, attributed(name))
+        try:
+            t0 = time.perf_counter()
+            r = ct.autotune_fft(grid)
+            secs = time.perf_counter() - t0
+        finally:
+            for name, fn in orig.items():
+                setattr(F.DistributedFFT, name, fn)
+        torch.cuda.empty_cache()
+        entry = {"s": secs, "report": r.report(), "fused2": r.plan.fused2,
+                 "k5_by_policy": dict(by_policy),
+                 "trials": [(t.fused2, t.err, t.avg_s, t.reason)
+                            for t in r.trials]}
+        if n == FFT_TUNE_N[0]:
+            if not (all(t.gate_passed and t.err < GATE and t.times_s
+                        for t in r.trials)
+                    and by_policy[False] == 0 and by_policy[True] > 0):
+                raise AssertionError(f"autotune_fft {n}^3: trials "
+                                     f"{entry['trials']}, K5 launches by "
+                                     f"policy {by_policy}")
+            gen = torch.Generator(device=DEVICE).manual_seed(5)
+            xr = torch.randn((n, n, n), generator=gen, device=DEVICE)
+            xi = torch.randn((n, n, n), generator=gen, device=DEVICE)
+            D.reset_launch_count()
+            yr, yi = r.plan.forward_planes((xr, xi))
+            torch.cuda.synchronize()
+            k5 = D.launch_count
+            ref = torch.fft.fftn(torch.complex(xr, xi).to(torch.complex128))
+            rel = rel_l2(torch, torch.complex(yr, yi).to(ref.dtype), ref)
+            if k5 != int(r.plan.fused2) or rel > RTOL_FFT:
+                raise AssertionError(f"autotune_fft {n}^3 winner fused2="
+                                     f"{r.plan.fused2}: {k5} K5 launches in "
+                                     f"its forward, rel L2 {rel}")
+            entry.update(forward_k5=k5, rel_l2=rel,
+                         k5_launches=by_policy[True] + k5)
+            del xr, xi, yr, yi, ref
+        else:
+            k5t = r.trials[1]
+            if not (r.trials[0].gate_passed and k5t.reason
+                    and "K5's gate" in k5t.reason and not r.plan.fused2
+                    and by_policy[True] == 0):
+                raise AssertionError(f"autotune_fft {n}^3: trials "
+                                     f"{entry['trials']}")
+        torch.cuda.empty_cache()
+        res[n] = entry
+    return res
+
+
+def grad_phase(torch, ct, K, D, perf, gen):
+    """The backward of an axis-contiguous 512^3 c64 transpose_x_to_y is one
+    K1 launch, bit-equal to the plain version's autograd; the backward of
+    K5 forward and inverse at (129, 256, 256) is one K5 launch each,
+    within 1e-5 rel L2 of torch.fft's autograd in complex128; forward and
+    backward timed."""
+    from cudecomp_tpu_torch.ops.transpose import _net_perm
+
+    def t(fn):
+        return mean(perf.time_fn(fn, n_warmup=2, n_trials=3, iters=10,
+                                 device=DEVICE)) * 1e3
+
+    grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(1, 1),
+                                      transpose_axis_contiguous=(True,) * 3),
+                        DEVICE)
+    x = complex_field(torch, grid.buffer_shape(0), gen)
+    xr = x.clone().requires_grad_(True)
+    y = ct.transpose_x_to_y(grid, xr)
+    c = complex_field(torch, tuple(y.shape), gen)
+    K.reset_launch_count()
+    (g,) = torch.autograd.grad(y, xr, c, retain_graph=True)
+    torch.cuda.synchronize()
+    k1 = K.launch_count
+    perm = _net_perm(grid.config, 0, +1)  # the x->y permute it launched
+    xp = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(xp.permute(perm).contiguous(), xp, c)
+    if k1 != 1 or not torch.equal(g, want):
+        raise AssertionError(f"K1 backward: {k1} launches (expected 1), "
+                             f"bit-equal to permute().contiguous()'s "
+                             f"autograd {torch.equal(g, want)}")
+    res = {"k1_backward": k1,
+           "k1_fwd_ms": t(lambda: ct.transpose_x_to_y(grid, x)),
+           "k1_bwd_ms": t(lambda: torch.autograd.grad(y, xr, c,
+                                                      retain_graph=True))}
+    del x, xr, y, c, g, want, xp
+    torch.cuda.empty_cache()
+
+    x = complex_field(torch, K5_GRAD_SHAPE, gen)
+    c = complex_field(torch, K5_GRAD_SHAPE, gen)
+    res["k5_backward"], res["k5_rel"] = 0, 0.0
+    for inverse in (False, True):
+        xr = x.clone().requires_grad_(True)
+        y = D.dft2(xr, inverse)
+        D.reset_launch_count()
+        (g,) = torch.autograd.grad(y, xr, c, retain_graph=True)
+        torch.cuda.synchronize()
+        launches = D.launch_count
+        x128 = x.to(torch.complex128).requires_grad_(True)
+        fn = torch.fft.ifftn if inverse else torch.fft.fftn
+        (want,) = torch.autograd.grad(fn(x128, dim=(1, 2)), x128,
+                                      c.to(torch.complex128))
+        rel = rel_l2(torch, g.to(want.dtype), want)
+        if launches != 1 or rel > 1e-5:
+            raise AssertionError(f"K5 backward (inverse={inverse}): "
+                                 f"{launches} launches (expected 1), rel L2 "
+                                 f"{rel} against torch.fft's autograd")
+        tag = "inv" if inverse else "fwd"
+        res["k5_backward"] += launches
+        res["k5_rel"] = max(res["k5_rel"], rel)
+        res[f"k5_{tag}_ms"] = t(lambda: D.dft2(x, inverse))
+        res[f"k5_{tag}_bwd_ms"] = t(lambda: torch.autograd.grad(
+            y, xr, c, retain_graph=True))
+        del xr, y, g, x128, want
+    del x, c
+    torch.cuda.empty_cache()
+    return res
+
+
+def dryrun_phase(torch, K):
+    """entry("cuda"): one step, finite, K1 launched; dryrun_multichip(4,
+    "cuda") on the shared card: pallas_a2a and HaloMethod.PALLAS ran on
+    every rank, and exactly the stages that move CUDA tensors over gloo
+    were refused, each saying so."""
+    from cudecomp_tpu_torch import dryrun
+    step, args = dryrun.entry(DEVICE, seed=0)
+    K.reset_launch_count()
+    outs = step(*args)
+    torch.cuda.synchronize()
+    k1 = K.launch_count
+    if k1 < 4 or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"dryrun entry: {k1} K1 launches, finite "
+                             f"{[bool(torch.isfinite(o).all()) for o in outs]}")
+    del outs, args
+    t0 = time.perf_counter()
+    reports = dryrun.dryrun_multichip(PEER_RANKS, DEVICE)
+    secs = time.perf_counter() - t0
+    for r in reports:
+        refused = set(r["refused"])
+        if not ({"pallas_a2a", "halo_pallas"} <= set(r["ran"])
+                and refused == GLOO_ON_CUDA
+                and all("gloo" in m for m in r["refused"].values())):
+            raise AssertionError(f"dryrun rank {r['rank']}: ran {r['ran']}, "
+                                 f"refused {r['refused']}")
+    return {"entry_k1": k1, "multichip_s": secs, "ran": reports[0]["ran"],
+            "refused": sorted(reports[0]["refused"])}
+
+
+def examples_phase(torch, K, S, D, cb):
+    """Each of the six examples on the card at its default size, P = 1,
+    between a reset and a read of the counts; its seconds."""
+    import importlib
+    out = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"cudecomp_tpu_torch.examples.{name}")
+        K.reset_launch_count()
+        S.reset_launch_count()
+        D.reset_launch_count()
+        cb.reset_probe_count()
+        secs = mod.main(["--device", DEVICE])
+        torch.cuda.synchronize()
+        out[name] = {"s": secs, "launches": counts(K, S, D, cb)}
+        torch.cuda.empty_cache()
+    if out["heat3d_stencil"]["launches"]["K4"] < 1:
+        raise AssertionError(f"heat3d_stencil launched no K4: {out}")
+    return out
+
+
+def phase11(torch, ct, K, S, D, cb, perf, gen):
+    """Phase 11: compat, autotune_fft, the gradients, the dryrun and the
+    examples; returns each part's results."""
+    t0 = time.perf_counter()
+    res = {"compat": compat_phase(torch, ct, K, gen),
+           "fft_tune": autotune_fft_phase(torch, ct, D),
+           "grad": grad_phase(torch, ct, K, D, perf, gen),
+           "dryrun": dryrun_phase(torch, K),
+           "examples": examples_phase(torch, K, S, D, cb)}
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
 def fresh_process(worker, what):
     """``worker(0, out_path)`` in a fresh spawned process on the card; the
     JSON it wrote to ``out_path``."""
@@ -1796,6 +2143,53 @@ def main() -> int:
           f"kernels {[k[:60] for k in tp['k1_names']]}; by range "
           f"{ {k: round(v, 4) for k, v in at_['ranges'].items()} }")
 
+    # phase 11: compat, autotune_fft, gradients, the dryrun, the examples
+    torch.cuda.empty_cache()
+    p11 = phase11(torch, ct, K, S, D, cb, perf, gen)
+    cp, gr, dr, ex = (p11["compat"], p11["grad"], p11["dryrun"],
+                      p11["examples"])
+    print(f"phase 11 in {p11['s']:.1f} s: compat flow at {COMPAT_N}^3 c64 "
+          f"axis-contiguous pdims (1, 1): the four cudecompTranspose* "
+          f"calls {cp['k1']} K1 launches, bit-equal to the native ops; "
+          f"cudecompUpdateHalosX width 1 periodic on {HALO_N}^3 f32 "
+          f"bit-equal to update_halos; workspace sizes {cp['ws']} equal "
+          f"geometry's; 128^3 pdims (0, 0) with mapped options copied back "
+          f"{cp['tuned']}")
+    for n, e in p11["fft_tune"].items():
+        extra = (f"; the winner's forward {e['forward_k5']} K5 launch(es), "
+                 f"rel L2 vs complex128 fftn {e['rel_l2']:.3e}"
+                 if n == FFT_TUNE_N[0] else "")
+        print(f"[{card}] autotune_fft {n}^3 c2c split-complex pdims (1, 1) "
+              f"in {e['s']:.2f} s, K5 launches by policy "
+              f"{e['k5_by_policy']}{extra}; the trial table:")
+        print(with_card(card, e["report"]))
+    print(f"[{card}] gradients: 512^3 c64 axis-contiguous transpose_x_to_y "
+          f"backward {gr['k1_backward']} K1 launch, bit-equal to "
+          f"permute().contiguous()'s autograd; forward {gr['k1_fwd_ms']:.4f} "
+          f"ms, backward {gr['k1_bwd_ms']:.4f} ms; K5 {K5_GRAD_SHAPE} c64 "
+          f"backward {gr['k5_backward']} launches over forward and inverse, "
+          f"rel L2 vs torch.fft's complex128 autograd {gr['k5_rel']:.3e}; "
+          f"K5 forward {gr['k5_fwd_ms']:.4f} ms, its backward "
+          f"{gr['k5_fwd_bwd_ms']:.4f} ms; inverse {gr['k5_inv_ms']:.4f} ms, "
+          f"its backward {gr['k5_inv_bwd_ms']:.4f} ms")
+    k2_bwd = sum(r["grad"]["k2_backward"] for r in ranks)
+    print(f"phase 9's ranks: PALLAS_A2A x->y backward on {PEER_SMALL} at "
+          f"pdims (2, 2): {k2_bwd} K2 launches over the ranks, bit-equal to "
+          f"the reverse transpose of the cotangent; HaloMethod.PALLAS with "
+          f"grad raised: {ranks[0]['grad']['refusal']}")
+    print(f"dryrun: entry('cuda') one step, {dr['entry_k1']} K1 launches; "
+          f"dryrun_multichip({PEER_RANKS}, 'cuda') on the shared card in "
+          f"{dr['multichip_s']:.1f} s: every rank ran {dr['ran']} and "
+          f"refused {dr['refused']} (gloo moves CPU tensors)")
+    print(f"[{card}] examples at their default sizes, P = 1: "
+          + "; ".join(f"{k} {v['s']:.2f} s (launches {v['launches']})"
+                      for k, v in ex.items()))
+    p11_k1 = (cp["k1"] + gr["k1_backward"] + dr["entry_k1"]
+              + sum(v["launches"]["K1"] for v in ex.values()))
+    p11_k5 = (p11["fft_tune"][FFT_TUNE_N[0]]["k5_launches"] + gr["k5_backward"]
+              + sum(v["launches"]["K5"] for v in ex.values()))
+    p11_k4 = sum(v["launches"]["K4"] for v in ex.values())
+
     t120 = perm_t[(1, 2, 0)]
     ms_to_bound = 1e3 / HBM_BYTES_PER_S
     k4_flops = 2 * 27 * N ** 3
@@ -1816,7 +2210,8 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/transpose2d.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:299",
-         "launches": mp["launches"] + tp["k1"],
+         "launches": mp["launches"] + tp["k1"] + p11_k1,
+         "backward_launches": gr["k1_backward"],
          "max_abs_err": worst,
          "ms": t120["kernel"],
          "plain_ms": t120["plain"],
@@ -1827,7 +2222,7 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/stencil27.cu",
          "replaces": "cudecomp_tpu/ops/stencil.py:282",
-         "launches": sp["launches"]["K4"],
+         "launches": sp["launches"]["K4"] + p11_k4,
          "max_abs_err": k4_worst["float32"],
          "ms": st["kernel"],
          "plain_ms": st["plain"],
@@ -1840,7 +2235,8 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/dft2.cu",
          "replaces": "cudecomp_tpu/ops/mxu_fft.py:392",
-         "launches": spec["launches"]["K5"],
+         "launches": spec["launches"]["K5"] + p11_k5,
+         "backward_launches": gr["k5_backward"],
          "max_abs_err": k5["abs"],
          "ms": k5t["kernel"],
          "plain_ms": k5t["plain"],
@@ -1851,7 +2247,8 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/peer.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:183",
-         "launches": path["K2"] + tune_counts["K2"],
+         "launches": path["K2"] + tune_counts["K2"] + k2_bwd,
+         "backward_launches": k2_bwd,
          "max_abs_err": max(max(r["k2_err"], r["tune"]["k2_err"])
                             for r in ranks),
          "ms": pt["k2_ms"],

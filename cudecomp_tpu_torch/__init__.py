@@ -26,14 +26,16 @@ JAX package stays the reference and the tests hold this package to it.
     which times the candidate process grids, transpose methods (the
     all-to-all, the per-peer rings, the pipelined transpose and the
     kernel exchange, where each can run), layouts and halo methods on the
-    grid's device; the performance report (``performance``) records each
-    transpose and halo update while it is on.
+    grid's device; ``autotune_fft`` picks an FFT plan's K5 policy
+    (``DistributedFFT.fused2``); the performance report (``performance``)
+    records each transpose and halo update while it is on.
+  * the transposes, the FFTs and ``update_halos`` are differentiable, as
+    in the JAX package (``HaloMethod.PALLAS`` on a CUDA tensor excepted).
+  * ``compat`` holds the ``cudecomp*`` entry points of the reference C
+    API; ``dryrun`` and ``examples`` drive the whole library.
 
-Ported so far: config, geometry, grid and mesh, every exchange strategy,
-the four transposes, the distributed FFT, the halo engine, the
-ghost-plane stencil path, the spectral operators, the Poisson (spectral
-and CG), Taylor-Green and projection solvers, checkpoints, the autotuner,
-the performance report and timing, and the benchmark.
+Ported: everything the JAX package does but the ``bench_full.py`` cell
+table.
 """
 
 from cudecomp_tpu_torch.config import (
@@ -57,7 +59,9 @@ from cudecomp_tpu_torch.geometry import (
 )
 from cudecomp_tpu_torch.grid import (GridDescriptor, clear_plan_caches,
                                      finalize, init, make_grid)
-from cudecomp_tpu_torch.ops.fft import DistributedFFT, fft3d, ifft3d
+from cudecomp_tpu_torch.ops import fft
+from cudecomp_tpu_torch.ops.fft import (DistributedFFT, autotune_fft, fft3d,
+                                        ifft3d)
 from cudecomp_tpu_torch.ops.halo import update_halos
 from cudecomp_tpu_torch.ops.spectral import (SpectralOperators, dealias_mask,
                                              wavenumber_fields)
@@ -111,7 +115,9 @@ __all__ = [
     "halo_map",
     "stencil_apply",
     "models",
+    "fft",
     "DistributedFFT",
+    "autotune_fft",
     "fft3d",
     "ifft3d",
     "SpectralOperators",

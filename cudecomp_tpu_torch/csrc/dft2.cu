@@ -50,7 +50,7 @@
 //      of length M with weights from the twiddle table (N1 = 24, 40, 200,
 //      ...), and writes row k_a + A k_b of the chunk to `out`: W * 8
 //      contiguous bytes per row segment across a warp, the plane's one
-//      write.  The inverse's scale is applied here.
+//      write.  The scale is applied here.
 //   4. cluster.sync() before any block exits: a block's shared memory must
 //      outlive its peers' reads of it.
 // The FFTs are radix-2 decimation in frequency, unrolled in registers; their
@@ -388,8 +388,9 @@ extern "C" int64_t cudecomp_dft2_smem_bytes(int n1, int n2, int cluster,
 }
 
 // out = the 2-axis DFT over dims (1, 2) of the contiguous complex64
-// (nx, n1, n2) tensor x: forward, or with `inverse` the inverse times
-// `scale` (1/(n1 n2)); tw1 = W_n1^k (n1 values) and tw2 = W_n2^k (n2
+// (nx, n1, n2) tensor x: the forward transform, or with `inverse` the
+// unnormalised inverse, times `scale` (1 forward and 1/(n1 n2) inverse
+// for the FFT pair; the gradients take the other factor); tw1 = W_n1^k (n1 values) and tw2 = W_n2^k (n2
 // values) are the forward twiddle tables.  One cluster of `cluster` blocks
 // per plane, columns in chunks of `chunk`.
 extern "C" int cudecomp_dft2(const void* x, void* out, const void* tw1,
@@ -426,7 +427,7 @@ extern "C" int cudecomp_dft2(const void* x, void* out, const void* tw1,
                            static_cast<float2*>(out),
                            static_cast<const float2*>(tw1),
                            static_cast<const float2*>(tw2), n1, chunk, sign,
-                           inverse ? scale : 1.f);
+                           scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

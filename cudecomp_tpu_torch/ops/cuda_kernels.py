@@ -16,7 +16,9 @@ each thread's access 16 bytes wide is work for later.
 Dispatch: a tensor on the CPU takes the plain twin (``*_ref``), which
 defines what the kernel computes.  A CUDA tensor launches the kernel or
 raises; nothing falls back.  ``launch_count`` counts launches, so a run can
-show that it went through the kernel.
+show that it went through the kernel.  :func:`cyclic_permute` is a
+``torch.autograd.Function`` on both devices: its backward is the inverse
+cyclic permute of the gradient, K1 again on a CUDA tensor.
 
 Trailing dims beyond the transposed ones travel with each element, so a
 complex tensor, a split-complex ``(..., 2)`` pair or a 3-component field is
@@ -133,11 +135,35 @@ def cyclic_permute(x: torch.Tensor, perm) -> torch.Tensor:
     perm (1, 2, 0): out[a,b,c] = x[c,a,b], the (I, J*K) view transposed;
     perm (2, 0, 1): out[a,b,c] = x[b,c,a], the (I*J, K) view transposed.
     Trailing dims move with each element.  Other perms raise.
+    Differentiable: the backward permutes the gradient by the inverse
+    perm (the other cyclic one).
     """
     perm = tuple(perm)
     if x.dim() < 3 or perm not in CYCLIC_PERMS:
         raise ValueError(f"cyclic_permute takes perms {CYCLIC_PERMS} of a "
                          f">= 3-dim tensor, got {perm} of {tuple(x.shape)}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CyclicPermute.apply(x, perm)
+    return _cyclic_permute(x, perm)
+
+
+class _CyclicPermute(torch.autograd.Function):
+    """K1 (or its plain version on the CPU) under autograd."""
+
+    @staticmethod
+    def forward(ctx, x, perm):
+        ctx.perm = perm
+        return _cyclic_permute(x, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = CYCLIC_PERMS[1 - CYCLIC_PERMS.index(ctx.perm)]
+        return _cyclic_permute(grad.contiguous(), inverse), None
+
+
+def _cyclic_permute(x: torch.Tensor, perm) -> torch.Tensor:
+    """:func:`cyclic_permute` outside autograd: the plain version on the
+    CPU, else K1."""
     if x.device.type == "cpu":
         return cyclic_permute_ref(x, perm)
     I, J, K = x.shape[:3]

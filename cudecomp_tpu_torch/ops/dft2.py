@@ -23,12 +23,18 @@ the JAX kernel and to numpy.  The design is described in the source.
 The distributed FFT takes K5 for the (1, 2) dims of a 3D stage of a
 ``split_complex`` plan when :func:`dft2_eligible` holds: the opt-in
 ``CUDECOMP_TPU_FFT_FUSED2=1``, read per call, and the JAX gate's size
-rules, so the port takes K5 on exactly the plans where JAX takes it.
+rules (:func:`dft2_fits`), so the port takes K5 on exactly the plans
+where JAX takes it.  A plan's ``fused2`` field, which ``autotune_fft``
+pins, overrides the opt-in.
 
 Dispatch: a tensor on the CPU takes the plain version (:func:`dft2_ref`,
 the two dense products, which also takes complex128).  A CUDA tensor
 launches the kernel or raises; nothing falls back.  ``launch_count``
-counts launches.
+counts launches.  :func:`dft2` is a ``torch.autograd.Function`` on both
+devices: the gradient of the unnormalised forward DFT ``A`` is
+``A^H g``, the inverse transform of ``g`` without its ``1/(N1*N2)``; that
+of the inverse is the forward transform of ``g`` times ``1/(N1*N2)``.  On
+a CUDA tensor both are one K5 launch, the factor passed as K5's scale.
 """
 
 from __future__ import annotations
@@ -135,17 +141,22 @@ def col_radix(n1: int) -> int:
     return 16 if n1 in (128, 256) else 8
 
 
-def dft2_eligible(x: torch.Tensor) -> bool:
-    """Whether the FFT takes K5 for dims (1, 2) of ``x``: the JAX gate
-    (``mxu_fft._dft2_gate``) without its platform clause.  The opt-in
-    ``CUDECOMP_TPU_FFT_FUSED2=1``, a 3D complex64 tensor, ``N1 <= 256``,
-    ``N2 <= 256``, ``N1 % 8 == 0`` and ``N2 % 128 == 0``."""
-    if not fft_fused2():
-        return False
+def dft2_fits(x: torch.Tensor) -> bool:
+    """Whether K5 takes dims (1, 2) of ``x``: the JAX gate's size rules
+    (``mxu_fft._dft2_gate`` without its platform clause and its opt-in):
+    a 3D complex64 tensor, ``N1 <= 256``, ``N2 <= 256``, ``N1 % 8 == 0``
+    and ``N2 % 128 == 0``."""
     if x.dim() != 3 or x.dtype != torch.complex64:
         return False
     n1, n2 = x.shape[1], x.shape[2]
     return n1 <= 256 and n2 <= 256 and n1 % 8 == 0 and n2 % 128 == 0
+
+
+def dft2_eligible(x: torch.Tensor) -> bool:
+    """Whether the FFT takes K5 for dims (1, 2) of ``x`` when its plan
+    leaves the choice to the environment: the opt-in
+    ``CUDECOMP_TPU_FFT_FUSED2=1`` and :func:`dft2_fits`."""
+    return fft_fused2() and dft2_fits(x)
 
 
 class Dft2Plan(NamedTuple):
@@ -302,13 +313,47 @@ def dft2_stages(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
 
 def dft2(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """The DFT over dims 1 and 2 of ``x`` (``torch.fft.fftn(x, dim=(1, 2))``
-    forward, ``ifftn`` inverse); a new tensor."""
+    forward, ``ifftn`` inverse); a new tensor.  Differentiable."""
+    inverse = bool(inverse)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Dft2.apply(x, inverse)
+    return _dft2(x, inverse)
+
+
+class _Dft2(torch.autograd.Function):
+    """K5 (or its plain version on the CPU) under autograd: the backward of
+    either direction is one transform of the other direction, scaled."""
+
+    @staticmethod
+    def forward(ctx, x, inverse):
+        ctx.inverse = inverse
+        return _dft2(x, inverse)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # forward: A^H g = n * ifft2(g), the unnormalised inverse;
+        # inverse: (1/n) A g, the forward transform times 1/n
+        n = grad.shape[1] * grad.shape[2]
+        return (_dft2(grad.contiguous(), not ctx.inverse,
+                      1.0 / n if ctx.inverse else 1.0), None)
+
+
+def _dft2(x: torch.Tensor, inverse: bool, scale=None) -> torch.Tensor:
+    """The unnormalised transform of ``x`` (forward, or inverse: the
+    conjugate exponent) times ``scale`` (None: the FFT pair's, 1 forward
+    and ``1/(N1*N2)`` inverse), outside autograd: the plain version on the
+    CPU, else one K5 launch."""
     global launch_count
+    _check(x)
+    n = x.shape[1] * x.shape[2]
+    default = 1.0 / n if inverse else 1.0
+    if scale is None:
+        scale = default
     if x.device.type == "cpu":
-        return dft2_ref(x, inverse)
+        out = dft2_ref(x, inverse)
+        return out if scale == default else out * (scale / default)
     if x.device.type != "cuda":
         raise ValueError(f"K5 runs on CUDA tensors, got one on {x.device}")
-    _check(x)
     if x.dtype != torch.complex64:
         raise ValueError(f"K5 takes complex64 CUDA tensors, got {x.dtype}")
     if not x.is_contiguous():
@@ -326,8 +371,8 @@ def dft2(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cudecomp_dft2(x.data_ptr(), out.data_ptr(), tw1.data_ptr(),
                                 tw2.data_ptr(), nx, n1, n2, plan.cluster,
-                                plan.chunk, int(bool(inverse)),
-                                1.0 / (n1 * n2), stream)
+                                plan.chunk, int(bool(inverse)), scale,
+                                stream)
     if err != 0:
         msg = lib.cudecomp_cuda_error_string(err).decode()
         raise RuntimeError(f"K5 launch failed for shape {tuple(x.shape)}, "

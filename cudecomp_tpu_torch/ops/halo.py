@@ -20,8 +20,15 @@ with optional periodic wrap:
 
 The halo slabs are written into the caller's tensor with slice assignment
 and the same tensor is returned: the reference's buffer semantics
-(``halo.h:61-70``).  While the performance report is on, each call
-records one sample (``performance.maybe_record``).
+(``halo.h:61-70``).  Gradients flow through ``HaloMethod.PPERMUTE`` (and
+the self copies of a dim one rank holds), as through the JAX package's
+``update_halos``: each halo cell's cotangent lands on the interior cell it
+was copied from, on whichever rank holds it.  Since the update is in
+place, a caller that differentiates passes a tensor that is not a leaf
+(``u.clone()`` of a leaf that requires grad).  K3 has no adjoint (nor has
+the JAX package's Pallas halo kernel), so ``HaloMethod.PALLAS`` on a CUDA
+tensor that requires grad raises ``ValueError``.  While the performance
+report is on, each call records one sample (``performance.maybe_record``).
 
 Buffer layout (padded-pencil format, see ``geometry``): along a dim with
 halo ``h`` and max split ``m`` the local tensor holds ``[low halo: 0..h)
@@ -31,6 +38,7 @@ halo ``h`` and max split ``m`` the local tensor holds ``[low halo: 0..h)
 
 from __future__ import annotations
 
+import torch
 import torch.distributed as dist
 
 from cudecomp_tpu_torch import geometry, performance
@@ -61,7 +69,10 @@ def update_halos(grid, arr, axis: int, halo_extents, halo_periods,
         nonzero halo extent, in order, so that edges and corners compose
         like successive reference calls.
       donate: accepted for parity with the JAX API; it has no effect, since
-        the halos are always written into ``arr``.
+        the halos are always written into ``arr``.  For the same reason a
+        caller that differentiates passes a non-leaf ``arr`` (e.g.
+        ``u.clone()``); ``HaloMethod.PALLAS`` with grad on a CUDA tensor
+        raises ``ValueError`` (K3 has no adjoint).
 
     Returns ``arr``, with its halos updated.
     """
@@ -153,6 +164,11 @@ def _update_dim(grid, arr, d, periodic, i_d, h, m, pd, P, splits):
     group = grid.group(grid.axis_names[pd])
     if (grid.config.halo_method == HaloMethod.PALLAS
             and arr.device.type != "cpu"):
+        if torch.is_grad_enabled() and arr.requires_grad:
+            raise ValueError(
+                "update_halos: HaloMethod.PALLAS (K3) has no adjoint, and "
+                "this tensor requires grad; differentiate with "
+                "HaloMethod.PPERMUTE")
         with trace_range(EXCHANGE_PREFIX + "halo_pallas"):
             peer_kernels.halo_exchange(arr, group, i_d, h, m, splits,
                                        periodic)
@@ -177,7 +193,15 @@ def halo_ring(arr, group, i_d: int, h: int, m: int, splits, periodic: bool):
     # my last h interior cells go up, my first h go down
     from_left = ppermute_group(arr[sl(v, v + h)], group, up)
     from_right = ppermute_group(arr[sl(h, 2 * h)], group, down)
-    if periodic or me > 0:
-        arr[sl(0, h)] = from_left
-    if periodic or me < P - 1:
-        arr[sl(h + m, 2 * h + m)] = from_right
+    for got, take, lo in ((from_left, periodic or me > 0, 0),
+                          (from_right, periodic or me < P - 1, h + m)):
+        if take:
+            arr[sl(lo, lo + h)] = got
+        elif got.requires_grad:
+            # an edge keeps its halo; the shift's result still enters the
+            # graph (with a zero gradient), so that every rank runs the
+            # shift's backward, which its neighbour waits for
+            keep = arr[sl(lo, lo + h)]
+            arr[sl(lo, lo + h)] = torch.where(
+                torch.zeros((), dtype=torch.bool, device=keep.device), got,
+                keep)

@@ -21,6 +21,13 @@ peer ``q`` sent.
 The pipelined transpose (``ring_pipelined``) restructures the whole
 transpose around the ring's steps; the transpose engine holds it.
 
+Gradients: every exchange is differentiable, as the JAX package's are.
+An all-to-all of blocks is its own adjoint, so the all-to-all, the rings
+and K2 are each one :class:`torch.autograd.Function` whose backward runs
+the same exchange on the gradient; the backward of ``ppermute_group`` is
+``ppermute_group`` of the gradient with the pairs reversed.  The backward
+passes refuse what the forward passes refuse (CUDA over gloo).
+
 Ranks that share one card (NCCL refuses two ranks on one GPU) run over a
 gloo process group, which exchanges CPU tensors only: there the CUDA
 tensors travel through the kernels (``pallas_a2a``, ``HaloMethod.PALLAS``),
@@ -75,13 +82,39 @@ def ppermute_group(x: torch.Tensor, group,
     ``x``'s shape and dtype.  A rank that no pair sends to receives zeros:
     the stencil path's Dirichlet-0 ghost planes rest on that.  ``x`` is
     made contiguous before it is sent (y and z face planes are strided
-    views).  Every rank of the group must call.
+    views).  Every rank of the group must call, and in backward every rank
+    must reach the result's gradient: a caller that drops the result on
+    some ranks links it into the graph anyway (``ops.halo.halo_ring``).
     """
+    pairs = tuple((int(s), int(d)) for s, d in pairs)
     srcs = [s for s, _ in pairs]
     dsts = [d for _, d in pairs]
     if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
         raise ValueError(f"ppermute pairs must have distinct sources and "
                          f"distinct destinations, got {list(pairs)}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PPermute.apply(x, group, pairs)
+    return _ppermute(x, group, pairs)
+
+
+class _PPermute(torch.autograd.Function):
+    """``ppermute_group`` under autograd: the adjoint of a shift along
+    ``pairs`` is the shift of the gradient along the reversed pairs; a
+    rank that sent nothing gets zeros."""
+
+    @staticmethod
+    def forward(ctx, x, group, pairs):
+        ctx.group, ctx.pairs = group, pairs
+        return _ppermute(x, group, pairs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_ppermute(grad, ctx.group, [(d, s) for s, d in ctx.pairs]),
+                None, None)
+
+
+def _ppermute(x: torch.Tensor, group, pairs) -> torch.Tensor:
+    """The shift of :func:`ppermute_group`, outside autograd."""
     _refuse_cuda_over_gloo(x, group, "ppermute")
     me = dist.get_rank(group)
     send = x.contiguous()
@@ -131,13 +164,45 @@ def all_reduce_grid(t: torch.Tensor, grid, op=dist.ReduceOp.SUM
     return t
 
 
+class _SelfAdjoint(torch.autograd.Function):
+    """An exchange ``run(blocks)`` of the block contract under autograd.
+    Block p of rank r lands in block r of rank p, so the adjoint moves
+    the gradient's block r of rank p back to block p of rank r: the same
+    exchange, run on the gradient."""
+
+    @staticmethod
+    def forward(ctx, blocks, run):
+        ctx.run = run
+        return run(blocks)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.run(grad.contiguous()), None
+
+
+def _self_adjoint(run, blocks: torch.Tensor) -> torch.Tensor:
+    """``run(blocks)``, recorded for autograd when ``blocks`` needs a
+    gradient."""
+    if torch.is_grad_enabled() and blocks.requires_grad:
+        return _SelfAdjoint.apply(blocks, run)
+    return run(blocks)
+
+
+def _check_blocks(blocks: torch.Tensor, n: int, block: int) -> None:
+    if blocks.shape[0] != n * block:
+        raise ValueError(f"blocks have {blocks.shape[0]} rows, expected "
+                         f"{n} peers x {block}")
+
+
 def exchange_all_to_all(blocks: torch.Tensor, group, n: int,
                         block: int) -> torch.Tensor:
     """One-shot all-to-all: block p -> peer p, received stacked by peer.
     Complex tensors cross as their ``view_as_real`` float pairs."""
-    if blocks.shape[0] != n * block:
-        raise ValueError(f"blocks have {blocks.shape[0]} rows, expected "
-                         f"{n} peers x {block}")
+    _check_blocks(blocks, n, block)
+    return _self_adjoint(partial(_all_to_all, group=group), blocks)
+
+
+def _all_to_all(blocks: torch.Tensor, group) -> torch.Tensor:
     _refuse_cuda_over_gloo(blocks, group, "all_to_all")
     blocks = blocks.contiguous()
     out = torch.empty_like(blocks)
@@ -152,7 +217,16 @@ def exchange_all_to_all(blocks: torch.Tensor, group, n: int,
 
 def _ring_exchange(blocks: torch.Tensor, group, n: int, block: int,
                    steps) -> torch.Tensor:
-    """Shared scaffold of every per-peer (ring-style) exchange.
+    """Shared scaffold of every per-peer (ring-style) exchange; see
+    :func:`_ring_steps`."""
+    _check_blocks(blocks, n, block)
+    return _self_adjoint(partial(_ring_steps, group=group, n=n, block=block,
+                                 steps=steps), blocks)
+
+
+def _ring_steps(blocks: torch.Tensor, group, n: int, block: int,
+                steps) -> torch.Tensor:
+    """The per-peer exchange, outside autograd.
 
     ``steps`` is a list of ``(sigma, sigma_inv)`` pairs: each step is a
     permutation ``j -> sigma(j)`` of the group ranks (``sigma_inv`` its
@@ -161,16 +235,13 @@ def _ring_exchange(blocks: torch.Tensor, group, n: int, block: int,
     index ``sigma_inv(me)``; the self block is a local copy.  The block
     contract lives here only, so that the increment, XOR and two-tier
     schedules cannot drift apart."""
-    if blocks.shape[0] != n * block:
-        raise ValueError(f"blocks have {blocks.shape[0]} rows, expected "
-                         f"{n} peers x {block}")
     me = dist.get_rank(group) if n > 1 else 0
     out = torch.empty_like(blocks)
     out[me * block:(me + 1) * block] = blocks[me * block:(me + 1) * block]
     for sigma, sigma_inv in steps:
         send_peer, recv_peer = sigma(me), sigma_inv(me)
-        recv = ppermute_group(blocks[send_peer * block:(send_peer + 1) * block],
-                              group, [(j, sigma(j)) for j in range(n)])
+        recv = _ppermute(blocks[send_peer * block:(send_peer + 1) * block],
+                         group, [(j, sigma(j)) for j in range(n)])
         out[recv_peer * block:(recv_peer + 1) * block] = recv
     return out
 
@@ -253,16 +324,15 @@ def exchange_pallas_a2a(blocks: torch.Tensor, group, n: int,
                         block: int) -> torch.Tensor:
     """``exchange_pallas_a2a``: the blocks as they are at n == 1
     (``pallas_kernels.py:191-192``), else K2 (``ops.peer_kernels.a2a``) for
-    a tensor off the CPU and ``exchange_all_to_all`` for a CPU tensor."""
-    if blocks.shape[0] != n * block:
-        raise ValueError(f"blocks have {blocks.shape[0]} rows, expected "
-                         f"{n} peers x {block}")
+    a tensor off the CPU and ``exchange_all_to_all`` for a CPU tensor.
+    K2's backward is K2 on the gradient, through the same workspace."""
+    _check_blocks(blocks, n, block)
     if n == 1:
         return blocks
     if blocks.device.type == "cpu":
         return exchange_all_to_all(blocks, group, n, block)
     with trace_range(EXCHANGE_PREFIX + "pallas_a2a"):
-        return peer_kernels.a2a(blocks, group)
+        return _self_adjoint(partial(peer_kernels.a2a, group=group), blocks)
 
 
 EXCHANGES = {

@@ -376,10 +376,241 @@ def _run_ring_case(case, rank_world):
     dist.barrier()
 
 
+def _shard(case, name, grid) -> torch.Tensor:
+    """This rank's tensor of ``case["shards"][name]``, writable."""
+    return torch.from_numpy(np.array(case["shards"][name][grid.coords]))
+
+
+def _grad_of(fn, x: torch.Tensor, ct) -> torch.Tensor:
+    """The gradient at ``x`` of ``<ct, fn(x)>``, the real inner product
+    summed over each output (a tensor, or a tuple paired with a tuple of
+    cotangents); complex parts pair re with re and im with im."""
+    x = x.clone().requires_grad_(True)
+    outs, cts = fn(x), ct
+    if not isinstance(outs, tuple):
+        outs, cts = (outs,), (ct,)
+    loss = sum((torch.view_as_real(o) * torch.view_as_real(c)).sum()
+               if o.is_complex() else (o * c).sum()
+               for o, c in zip(outs, cts))
+    (g,) = torch.autograd.grad(loss, x)
+    return g
+
+
+def _grid_of(case):
+    import cudecomp_tpu_torch as ct
+    grid = ct.make_grid(ct.GridConfig.from_dict(case["config"]), "cpu")
+    if case.get("hosts"):
+        grid = dataclasses.replace(grid, hosts=tuple(case["hosts"]))
+    return grid
+
+
+def _run_grad_transpose_case(case, rank_world):
+    """The gradient of each of the four transposes (the case's method,
+    halo extents and padding in and out) at the shard ``in_<op>`` against
+    the cotangent ``ct_<op>``, bit-equal to JAX's ``grad_<op>``."""
+    import cudecomp_tpu_torch as ct
+    grid = _grid_of(case)
+    check = _checker(case, grid, rank_world)
+    he, pad = case["halo_extents"], case["padding"]
+    kw = dict(input_halo_extents=he, output_halo_extents=he,
+              input_padding=pad, output_padding=pad)
+    for name in _TRANSPOSES:
+        op = getattr(ct, f"transpose_{name}")
+        check(f"grad_{name}", _grad_of(lambda v: op(grid, v, **kw),
+                                       _shard(case, f"in_{name}", grid),
+                                       _shard(case, f"ct_{name}", grid)))
+
+
+def _run_grad_halo_case(case, rank_world):
+    """The gradient of ``update_halos`` (on a clone: it writes in place)
+    bit-equal to JAX's, and the adjoint of ``sum(out)``: the set of
+    gradient values over every rank equals ``adjoint_values``."""
+    import torch.distributed as dist
+
+    import cudecomp_tpu_torch as ct
+    grid = _grid_of(case)
+    check = _checker(case, grid, rank_world)
+    axis, he, periods = case["axis"], case["halo_extents"], case["periods"]
+
+    def run(v):
+        return ct.update_halos(grid, v.clone(), axis, he, periods)
+
+    x = _shard(case, "in", grid)
+    check("grad", _grad_of(run, x, _shard(case, "ct", grid)))
+    g = _grad_of(run, x, torch.ones_like(x))
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, sorted(set(g.flatten().tolist())))
+    values = sorted(set().union(*seen))
+    if values != list(case["adjoint_values"]):
+        raise AssertionError(f"{case['name']}: the adjoint of sum(out) "
+                             f"takes the values {values}, not "
+                             f"{case['adjoint_values']}")
+
+
+def _run_grad_fft_case(case, rank_world):
+    """The gradients of the c2c and r2c FFTs, both directions, and of the
+    c2c plane forms, to 1e-10 of JAX's (conjugated where the input is
+    complex: torch's convention); then two independent exchanges in one
+    graph, whose backward must finish with the gradient of a sum."""
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch.ops.fft import DistributedFFT
+    grid = _grid_of(case)
+    check = _checker(case, grid, rank_world)
+    plan = DistributedFFT(grid=grid)
+    rplan = DistributedFFT(grid=grid, real=True)
+    pplan = DistributedFFT(grid=grid, split_complex=True)
+    cgrid = rplan.complex_grid
+
+    def local(name, g=grid):
+        return _shard(case, name, g)
+
+    check("c_grad", _grad_of(plan.forward, local("c_in"), local("c_ct")),
+          1e-10)
+    check("ci_grad", _grad_of(plan.inverse, local("ci_in"), local("ci_ct")),
+          1e-10)
+    check("r_grad", _grad_of(rplan.forward, local("r_in"), local("r_ct")),
+          1e-10)
+    check("ri_grad", _grad_of(rplan.inverse, local("ri_in", cgrid),
+                              local("ri_ct")), 1e-10)
+    pr, pi = local("p_in_r"), local("p_in_i")
+    cts = (local("p_ct_r"), local("p_ct_i"))
+    check("p_grad_r", _grad_of(lambda v: pplan.forward_planes((v, pi)), pr,
+                               cts), 1e-10)
+    check("p_grad_i", _grad_of(lambda v: pplan.forward_planes((pr, v)), pi,
+                               cts), 1e-10)
+    zi = local("pi_in_i")
+    check("pi_grad_r", _grad_of(lambda v: pplan.inverse_planes((v, zi)),
+                                local("pi_in_r"),
+                                (local("pi_ct_r"), local("pi_ct_i"))), 1e-10)
+
+    # two independent exchanges in one graph: a transpose and a
+    # non-periodic halo update, whose edge ranks drop a shift's result
+    he = (1, 1, 1)
+    a = torch.randn(grid.buffer_shape(0), dtype=torch.float64,
+                    requires_grad=True)
+    b = torch.randn(grid.buffer_shape(0, he), dtype=torch.float64,
+                    requires_grad=True)
+    loss = (ct.transpose_x_to_y(grid, a).sum()
+            + ct.update_halos(grid, b.clone(), 0, he,
+                              (False, False, False)).sum())
+    loss.backward()
+    from cudecomp_tpu_torch.utils.arrays import valid_interior_mask
+    inside = valid_interior_mask(grid, 0)
+    if not bool((a.grad[inside] == 1).all()):
+        raise AssertionError(f"{case['name']}: the transpose's gradient of a "
+                             f"sum is not one on the interior")
+
+
+def compat_queries(cc, handle, grid, he=(1, 1, 1)) -> dict:
+    """What the ``compat`` module (``cc``, the JAX package's or the port's)
+    answers about ``grid``: the config struct, the transpose and halo
+    workspace sizes, the data-type sizes and every shifted rank."""
+    rt = cc.cudecompGetGridDescConfig(handle, grid)
+    cfg = {k: (tuple(tuple(r) for r in v) if k == "transpose_mem_order"
+               else tuple(v) if isinstance(v, (tuple, list)) else v)
+           for k, v in dataclasses.asdict(rt).items()}
+    n = grid.config.pdims[0] * grid.config.pdims[1]
+    shifted = [cc.cudecompGetShiftedRank(handle, grid, axis, dim, disp,
+                                         periodic, rank=r)
+               for axis in range(3) for dim in range(3)
+               for disp in (-2, -1, 1, 2, 5) for periodic in (True, False)
+               for r in range(n)]
+    return dict(config=cfg, shifted=shifted,
+                transpose_ws=[cc.cudecompGetTransposeWorkspaceSize(
+                    handle, grid, eb) for eb in (4, 8, 16)],
+                halo_ws=[cc.cudecompGetHaloWorkspaceSize(handle, grid, a, he,
+                                                         eb)
+                         for a in range(3) for eb in (4, 8)],
+                type_sizes=[cc.cudecompGetDataTypeSize(t) for t in (
+                    cc.CUDECOMP_FLOAT, cc.CUDECOMP_DOUBLE,
+                    cc.CUDECOMP_FLOAT_COMPLEX, cc.CUDECOMP_DOUBLE_COMPLEX)])
+
+
+def _run_compat_case(case, rank_world):
+    """The cases of ``tests/test_compat.py`` through ``compat`` on a (2, 2)
+    grid: the basic-usage flow (four transposes and a periodic width-1
+    halo update) bit-equal to JAX compat's shards, the queries equal to
+    JAX's (:func:`compat_queries`), the backend enums' mapping, and the
+    autotuned config copied back into the caller's struct."""
+    from cudecomp_tpu_torch import compat as cc
+    from cudecomp_tpu_torch.config import HaloMethod, TransposeMethod
+    import cudecomp_tpu_torch as ct
+    handle = cc.cudecompInit(device="cpu")
+    config = cc.cudecompGridDescConfigSetDefaults()
+    config.gdims = tuple(case["gdims"])
+    config.pdims = (2, 2)
+    config.transpose_comm_backend = cc.CUDECOMP_TRANSPOSE_COMM_MPI_A2A
+    grid = cc.cudecompGridDescCreate(handle, config)
+    _ok(grid.config.transpose_method == TransposeMethod.ALL_TO_ALL)
+    check = _checker(case, grid, rank_world)
+    pinfo = cc.cudecompGetPencilInfo(handle, grid, 0)
+    _ok(pinfo.size == int(np.prod(pinfo.shape)), "pencil size")
+    f = torch.from_numpy(case["field"])
+    x = ct.scatter_global(grid, f, 0)
+    y = cc.cudecompTransposeXToY(handle, grid, x)
+    z = cc.cudecompTransposeYToZ(handle, grid, y)
+    y2 = cc.cudecompTransposeZToY(handle, grid, z)
+    x2 = cc.cudecompTransposeYToX(handle, grid, y2)
+    for name, got in (("y", y), ("z", z), ("y2", y2), ("x2", x2)):
+        check(name, got)
+    _ok(torch.equal(ct.gather_global(grid, x2, 0), f), "round trip")
+    he = (1, 1, 1)
+    h = ct.scatter_global(grid, f, 0, halo_extents=he)
+    h2 = cc.cudecompUpdateHalosX(handle, grid, h, halo_extents=he,
+                                 halo_periods=(True, True, True))
+    _ok(h2 is h, "the halo entry returns its updated input")
+    check("halo", h2)
+    got = compat_queries(cc, handle, grid)
+    _ok(got == case["queries"], f"queries {got} != {case['queries']}")
+    _ok(cc.cudecompGetShiftedRank(handle, grid, 0, 1, 1, True)
+        == grid.shifted_rank(0, 1, 1, True, rank_world), "default rank")
+    _ok(cc.cudecompMalloc(handle, grid, 1024) is None)
+    _ok(cc.cudecompFree(handle, grid, None) is None)
+    cc.cudecompGridDescDestroy(handle, grid)
+
+    for be, m in ((cc.CUDECOMP_TRANSPOSE_COMM_MPI_P2P, TransposeMethod.RING),
+                  (cc.CUDECOMP_TRANSPOSE_COMM_MPI_P2P_PL,
+                   TransposeMethod.RING_PIPELINED),
+                  (cc.CUDECOMP_TRANSPOSE_COMM_NCCL, TransposeMethod.RING_XOR),
+                  (cc.CUDECOMP_TRANSPOSE_COMM_NVSHMEM,
+                   TransposeMethod.PALLAS_A2A)):
+        config = cc.cudecompGridDescConfigSetDefaults()
+        config.gdims, config.pdims = (8, 8, 8), (2, 2)
+        config.transpose_comm_backend = be
+        _ok(cc.cudecompGridDescCreate(handle, config).config.transpose_method
+            == m, f"backend {be}")
+    config = cc.cudecompGridDescConfigSetDefaults()
+    config.gdims, config.pdims = (8, 8, 8), (2, 2)
+    config.halo_comm_backend = cc.CUDECOMP_HALO_COMM_NVSHMEM
+    _ok(cc.cudecompGridDescCreate(handle, config).config.halo_method
+        == HaloMethod.PALLAS, "halo backend")
+
+    # the autotuned config is copied back (src/cudecomp.cc:1248-1265)
+    config = cc.cudecompGridDescConfigSetDefaults()
+    config.gdims, config.pdims = (16, 16, 16), (0, 0)
+    options = cc.cudecompGridDescAutotuneOptionsSetDefaults()
+    options.n_warmup_trials, options.n_trials = 0, 1
+    options.autotune_transpose_backend = True
+    options.disable_nccl_backends = True
+    options.disable_nvshmem_backends = True
+    grid = cc.cudecompGridDescCreate(handle, config, options)
+    _ok(tuple(config.pdims) == tuple(grid.pdims), "pdims copied back")
+    _ok(config.transpose_comm_backend in (
+        cc.CUDECOMP_TRANSPOSE_COMM_MPI_P2P,
+        cc.CUDECOMP_TRANSPOSE_COMM_MPI_P2P_PL,
+        cc.CUDECOMP_TRANSPOSE_COMM_MPI_A2A), "backend copied back")
+    _same_on_every_rank((tuple(config.pdims), config.transpose_comm_backend),
+                        "the autotuned config")
+    cc.cudecompFinalize(handle)
+
+
 _KINDS = {"transpose": _run_case, "ring": _run_ring_case,
           "halo": _run_halo_case,
           "stencil": _run_stencil_case, "cg": _run_cg_case,
-          "spectral": _run_spectral_case, "peer": _run_peer_case}
+          "spectral": _run_spectral_case, "peer": _run_peer_case,
+          "grad_transpose": _run_grad_transpose_case,
+          "grad_halo": _run_grad_halo_case, "grad_fft": _run_grad_fft_case,
+          "compat": _run_compat_case}
 
 
 def _expect_error(case):
@@ -420,7 +651,10 @@ def multirank_worker(rank: int, world: int, init_file: str, cases) -> None:
     ``halo_extents`` and ``periods``, and K2's and K3's plans) or ``ring``
     (the four transposes of ``field`` with a per-peer method, each with
     ``halo_extents`` and ``padding`` in and out, and the rings' block
-    contract; ``hosts`` may stand in for the mesh's hosts).  A case
+    contract; ``hosts`` may stand in for the mesh's hosts) or
+    ``grad_transpose``, ``grad_halo``, ``grad_fft`` (gradients against
+    JAX's) or ``compat`` (the ``cudecomp*`` flow): see those functions.
+    A case
     with ``expect_error`` instead checks that its op
     (the X->Y transpose, or ``laplacian7`` on pencil ``axis`` for a stencil
     case) raises ValueError with that text.
@@ -930,10 +1164,57 @@ def _check_performance(rank: int) -> None:
     dist.barrier()
 
 
+def _check_autotune_fft(rank: int) -> None:
+    """``autotune_fft`` on 4 CPU ranks: on an uneven (2, 2) grid the gate
+    data is zero outside the valid interior and every rank records the
+    same trials and picks the same policy; on a (4, 1) grid whose (1, 2)
+    stage K5 takes, both candidates run and every rank picks alike."""
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch.ops import fft as F
+    from cudecomp_tpu_torch.utils.arrays import valid_interior_mask
+
+    seen = []
+    planes = F.DistributedFFT.forward_planes
+
+    def spy(self, x):
+        seen.append(x)
+        return planes(self, x)
+
+    F.DistributedFFT.forward_planes = spy
+    try:
+        grid = ct.make_grid(ct.GridConfig(gdims=(9, 10, 11), pdims=(2, 2)),
+                            "cpu")
+        res = F.autotune_fft(grid, n_warmup=0, n_trials=2, iters=1)
+        outside = ~valid_interior_mask(grid, 0)
+        import torch.distributed as dist
+        padded = [None] * dist.get_world_size()
+        dist.all_gather_object(padded, bool(outside.any()))
+        _ok(any(padded), "the grid is uneven")
+        for x in seen:
+            for v in x:
+                _ok(not bool(v[outside].any()), "gate data in the padding")
+        _ok([t.fused2 for t in res.trials] == [False, True], "candidates")
+        _ok(res.trials[0].gate_passed and res.trials[1].reason is not None,
+            "the cuFFT candidate passes; K5 has no stage here")
+        _same_on_every_rank([(t.fused2, t.err, t.gate_passed, t.times_s)
+                             for t in res.trials], "the uneven trials")
+        seen.clear()
+        grid = ct.make_grid(ct.GridConfig(gdims=(8, 8, 128), pdims=(4, 1)),
+                            "cpu")
+        res = F.autotune_fft(grid, n_warmup=0, n_trials=2, iters=1)
+        _ok(all(t.gate_passed for t in res.trials), "both run and pass")
+        _same_on_every_rank(([(t.fused2, t.err, t.times_s)
+                              for t in res.trials], res.plan.fused2,
+                             res.best_time_s), "the trials and the winner")
+    finally:
+        F.DistributedFFT.forward_planes = planes
+
+
 def protocol_worker(rank: int, world: int, init_file: str,
                     checks) -> None:
     """One CPU rank of a gloo world (``file://`` init): runs each named
-    check of ``_check_autotune_protocol`` and ``_check_performance``."""
+    check of ``_check_autotune_protocol``, ``_check_performance`` and
+    ``_check_autotune_fft``."""
     import torch.distributed as dist
 
     import cudecomp_tpu_torch as ct
@@ -944,7 +1225,8 @@ def protocol_worker(rank: int, world: int, init_file: str,
     try:
         for name in checks:
             {"autotune": _check_autotune_protocol,
-             "performance": _check_performance}[name](rank)
+             "performance": _check_performance,
+             "autotune_fft": _check_autotune_fft}[name](rank)
         dist.barrier()
     finally:
         ct.clear_plan_caches()

@@ -220,3 +220,60 @@ def test_make_grid_errors():
         with pytest.raises(RuntimeError, match="init_process_group"):
             ct.make_grid(ct.GridConfig(gdims=(8, 8, 8), pdims=(2, 2)), "cpu")
 
+
+
+# -- the port's geometry against the JAX package's native C++ core --------------
+
+from cudecomp_tpu.utils import native  # noqa: E402
+
+_needs_native = pytest.mark.skipif(native.load() is None,
+                                   reason="native core unavailable (no g++)")
+
+
+def _native_cfg(rng):
+    """A random port config (uneven splits, gdims_dist, layouts, rank
+    orders), as ``tests/test_native.py`` draws them."""
+    pd = (int(rng.integers(1, 5)), int(rng.integers(1, 5)))
+    gd = tuple(int(rng.integers(max(pd), 40)) for _ in range(3))
+    kw = {}
+    if rng.random() < 0.3:
+        kw["gdims_dist"] = tuple(max(1, g - int(rng.integers(0, 3)))
+                                 for g in gd)
+    if rng.random() < 0.5:
+        kw["transpose_axis_contiguous"] = tuple(bool(rng.integers(0, 2))
+                                                for _ in range(3))
+    if rng.random() < 0.5:
+        kw["rank_order"] = ct.RankOrder.COL_MAJOR
+    return ct.GridConfig(gdims=gd, pdims=pd, **kw)
+
+
+@_needs_native
+@pytest.mark.parametrize("seed", range(8))
+def test_native_core_fuzz(seed):
+    rng = np.random.default_rng(1000 + seed)
+    for _ in range(40):
+        n, p = int(rng.integers(1, 500)), int(rng.integers(1, 17))
+        excess = int(rng.integers(0, 5))
+        assert tgeo.get_splits(n, p, excess) == native.get_splits(n, p,
+                                                                  excess)
+        assert tgeo.get_split_offsets(n, p) == native.get_split_offsets(n, p)
+    for _ in range(25):
+        cfg = _native_cfg(rng)
+        order_code = int(cfg.rank_order == ct.RankOrder.COL_MAJOR)
+        axis = int(rng.integers(0, 3))
+        pr, pc = (int(rng.integers(0, cfg.pdims[0])),
+                  int(rng.integers(0, cfg.pdims[1])))
+        halo = tuple(int(rng.integers(0, 3)) for _ in range(3))
+        pad = tuple(int(rng.integers(0, 3)) for _ in range(3))
+        info = tgeo.get_pencil_info(cfg, axis, (pr, pc), halo, pad)
+        assert native.pencil_info(cfg.gdims, cfg.effective_gdims_dist,
+                                  cfg.pdims, cfg.mem_order(axis), axis, pr,
+                                  pc, halo, pad) == (
+            info.shape, info.lo, info.hi, info.size), (cfg, axis, pr, pc)
+        for _ in range(6):
+            dim, disp = int(rng.integers(0, 3)), int(rng.integers(-3, 4))
+            periodic = bool(rng.integers(0, 2))
+            rank = int(rng.integers(0, cfg.pdims[0] * cfg.pdims[1]))
+            assert tgeo.get_shifted_rank(cfg, axis, dim, disp, periodic,
+                                         rank) == native.shifted_rank(
+                cfg.pdims, order_code, axis, dim, disp, periodic, rank)

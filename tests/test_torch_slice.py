@@ -88,7 +88,14 @@ def test_port_never_imports_jax():
             "cudecomp_tpu_torch.utils.cuda_build, "
             "cudecomp_tpu_torch.ops.peer_kernels, "
             "cudecomp_tpu_torch.parallel.symmetric, "
-            "cudecomp_tpu_torch.utils.testing, cudecomp_tpu_torch.utils.env\n"
+            "cudecomp_tpu_torch.utils.testing, cudecomp_tpu_torch.utils.env, "
+            "cudecomp_tpu_torch.compat, cudecomp_tpu_torch.dryrun, "
+            "cudecomp_tpu_torch.examples.basic_usage, "
+            "cudecomp_tpu_torch.examples.fft_autotune, "
+            "cudecomp_tpu_torch.examples.checkpoint_restart, "
+            "cudecomp_tpu_torch.examples.heat3d_stencil, "
+            "cudecomp_tpu_torch.examples.spectral_ops, "
+            "cudecomp_tpu_torch.examples.ns_projection\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cudecomp_tpu' "
             "or m.startswith('cudecomp_tpu.')]\n"
