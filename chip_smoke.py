@@ -79,16 +79,21 @@ Phases, each of which raises on failure (nothing is caught):
      trip at pdims (2, 2), each rank holding its shard to its slice of the
      complex128 torch.fft.fftn of the global field (forward rel L2 <= 1e-5
      over all ranks, round trip max abs < 5e-4, exactly 4 K2 launches per
-     rank, each 4 CUDA launches, and no all_to_all_single), two
-     HaloMethod.PALLAS updates of the 512^3 f32 x-pencil at width 1,
-     periodic and not, bit-equal to the plain wrapped-index buffer with 2
-     K3 launches each; K2 and K3 on a 66 x 70 x 74 grid at pdims (1, 4) and
-     (4, 1) bit-equal to their plain versions over gloo on CPU copies; the
-     ranks' times of K2, the round trip, K3 and the update; after them one
-     more K2 exchange under torch.profiler, whose 2 signal_wait_kernel and
-     2 move_kernel runs on the card must be the 4 launches its C entry
-     reports, and K2 over the world on blocks that outgrow its workspace,
-     bit-equal, the workspace replaced by a new one
+     rank, each 2 kernels and 2 stream memory operations (the signal to
+     the one peer of the group and the wait for its signal), and no
+     all_to_all_single), two HaloMethod.PALLAS updates of the 512^3 f32
+     x-pencil at width 1, periodic and not, bit-equal to the plain
+     wrapped-index buffer with 2 K3 launches each, each 2 kernels and 2
+     stream memory operations; K2 and K3 on a 66 x 70 x 74 grid at pdims
+     (1, 4) and (4, 1) bit-equal to their plain versions over gloo on CPU
+     copies; the ranks' times of K2, the round trip, K3 and the update;
+     after them one more K2 exchange and one more K3 update under
+     torch.profiler, whose 2 move_kernel runs each on the card must be the
+     2 kernels its C entry reports, with no other device record (torch.
+     profiler records no stream memory operation: their count is held to
+     the signal pad instead, where the peer's slot must hold the
+     exchange's epoch + 1), and K2 over the world on blocks that outgrow
+     its workspace, bit-equal, the workspace replaced by a new one
      (testing.check_workspace_growth); K2's one PyTorch call timed,
      dist.all_to_all_single of a rank's pencil over the gloo group of pr
      on the card's tensors (never on the path); the autotuner on a 128^3
@@ -915,26 +920,55 @@ def probe_timing(torch, K, cb, perf):
 PEER_RANKS = 4
 PEER_SMALL = (66, 70, 74)   # uneven at P = 4 along every dim
 # the kernels of csrc/peer.cu, as the profiler names them (demangled or not)
-PEER_KERNEL = re.compile(r"(?:::|\d)(signal_wait_kernel|move_kernel|"
-                         r"copy_kernel)(?![a-z_])")
+PEER_KERNEL = re.compile(r"(?:::|\d)(move_kernel|copy_kernel)(?![a-z_])")
 
 
-def traced_k2_launches(torch, PK, fn):
-    """One call of ``fn`` (a K2 exchange) under torch.profiler: the
+def peer_counts(PK):
+    return (PK.a2a_cuda_launch_count + PK.halo_cuda_launch_count,
+            PK.a2a_memop_count + PK.halo_memop_count)
+
+
+def traced_exchange(torch, PK, fn):
+    """One call of ``fn`` (a K2 or K3 exchange) under torch.profiler: the
     kernels of csrc/peer.cu that the profiler saw run on the card, by
-    name, and the CUDA launches that K2's C entry reported for it."""
+    name; every other device record it saw; and the kernels and stream
+    memory operations that the C entries reported for the call."""
     from torch.profiler import ProfilerActivity, profile
-    n0 = PK.a2a_cuda_launch_count
+    k0, m0 = peer_counts(PK)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    seen = {}
+    seen, other = {}, {}
     for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         m = PEER_KERNEL.search(e.key)
-        if e.device_type == torch.autograd.DeviceType.CUDA and m:
-            seen[m.group(1)] = seen.get(m.group(1), 0) + e.count
-    return seen, PK.a2a_cuda_launch_count - n0
+        into, key = (seen, m.group(1)) if m else (other, e.key[:80])
+        into[key] = into.get(key, 0) + e.count
+    k1, m1 = peer_counts(PK)
+    return {"kernels": seen, "other": other, "reported": k1 - k0,
+            "memops": m1 - m0}
+
+
+def check_traced(rank, what, traced, ws, P):
+    """A traced exchange over ``P`` ranks on workspace ``ws``: its two
+    move kernels seen and reported, no other device record, 2 (P - 1)
+    stream memory operations reported, and the signal of every other rank
+    for its epoch in this rank's pad."""
+    pad = ws.signals()
+    traced["pad"] = pad
+    ok = (traced["kernels"] == {"move_kernel": 2} and traced["reported"] == 2
+          and not traced["other"] and traced["memops"] == 2 * (P - 1)
+          and all(v >= ws.exchanges for r, v in enumerate(pad)
+                  if r != ws.rank))
+    if not ok:
+        raise AssertionError(f"rank {rank}: one {what} exchange ran "
+                             f"{traced} on the card (epoch "
+                             f"{ws.exchanges - 1}); expected 2 move "
+                             f"kernels, nothing else, {2 * (P - 1)} stream "
+                             f"memory operations and every other rank's "
+                             f"signal in the pad")
 
 
 def peer_worker(rank, out_dir):
@@ -951,6 +985,7 @@ def peer_worker(rank, out_dir):
     from cudecomp_tpu_torch import bench
     from cudecomp_tpu_torch.ops import cuda_kernels as K
     from cudecomp_tpu_torch.ops import peer_kernels as PK
+    from cudecomp_tpu_torch.parallel import symmetric
     from cudecomp_tpu_torch.utils import cuda_build as cb
     from cudecomp_tpu_torch.utils import testing
 
@@ -989,12 +1024,14 @@ def peer_worker(rank, out_dir):
     torch.cuda.synchronize()
     fft_k2 = PK.a2a_launch_count
     fft_k2_cuda = PK.a2a_cuda_launch_count
+    fft_k2_memops = PK.a2a_memop_count
     halo_k3 = []
     for periods, buf in bufs.items():
         n0 = PK.halo_launch_count
         if ct.update_halos(hgrid, buf, 0, he, periods) is not buf:
             raise AssertionError("update_halos returned a new tensor")
         halo_k3.append(PK.halo_launch_count - n0)
+    halo_k3_cuda = (PK.halo_cuda_launch_count, PK.halo_memop_count)
     torch.cuda.synchronize()
     counts = {"K0": cb.probe_launch_count, "K1": K.launch_count,
               "K2": PK.a2a_launch_count, "K3": PK.halo_launch_count,
@@ -1010,22 +1047,28 @@ def peer_worker(rank, out_dir):
     dist.all_reduce(err, op=dist.ReduceOp.MAX)
     res = {"rel_l2": math.sqrt(float(sums[0]) / float(sums[1])),
            "roundtrip_err": float(err[0]), "counts": counts,
-           "fft_k2": fft_k2, "fft_k2_cuda": fft_k2_cuda, "halo_k3": halo_k3,
+           "fft_k2": fft_k2, "fft_k2_cuda": fft_k2_cuda,
+           "fft_k2_memops": fft_k2_memops, "halo_k3": halo_k3,
+           "halo_k3_cuda": halo_k3_cuda,
            "halo_err": 0.0,
            "k2_err": k2_err}
     del x, ref, xh, back, plan
-    if (fft_k2, fft_k2_cuda) != (4, 16) or counts["all_to_all_single"]:
+    if ((fft_k2, fft_k2_cuda, fft_k2_memops) != (4, 8, 8)
+            or counts["all_to_all_single"]):
         raise AssertionError(f"rank {rank}: the round trip launched K2 "
-                             f"{fft_k2} times in {fft_k2_cuda} CUDA launches "
-                             f"(expected 4 in 16) and called "
+                             f"{fft_k2} times in {fft_k2_cuda} kernels and "
+                             f"{fft_k2_memops} stream memory operations "
+                             f"(expected 4 in 8 and 8) and called "
                              f"all_to_all_single {len(a2a_single)} times")
     if not (res["rel_l2"] <= RTOL_FFT and res["roundtrip_err"] < GATE):
         raise AssertionError(f"PALLAS_A2A FFT: forward rel L2 "
                              f"{res['rel_l2']}, round trip max abs err "
                              f"{res['roundtrip_err']}")
-    if halo_k3 != [2, 2]:
+    if halo_k3 != [2, 2] or halo_k3_cuda != (8, 8):
         raise AssertionError(f"rank {rank}: halo updates launched K3 "
-                             f"{halo_k3} times, expected [2, 2]")
+                             f"{halo_k3} times in (kernels, stream memory "
+                             f"operations) {halo_k3_cuda}, expected [2, 2] "
+                             f"in (8, 8)")
     for periods, buf in bufs.items():
         want = testing.expected_halo_buffer(hgrid, hg, 0, he, periods)
         res["halo_err"] = max(res["halo_err"],
@@ -1040,20 +1083,29 @@ def peer_worker(rank, out_dir):
     res["small"] = testing.check_peer_kernels(torch.device(DEVICE),
                                               PEER_SMALL, seed=3)
     res["times"] = bench.peer_rank_times(N, 1, device=DEVICE)
-    # after the timing: one K2 exchange over pr under the profiler, whose
-    # kernels on the card must be the launches the C entry reports; then
-    # K2 over the world on blocks that outgrow its workspace
+    # after the timing: one K2 exchange over pr and one K3 update of the
+    # y dim under the profiler, whose kernels on the card must be the
+    # kernels the C entries report; then K2 over the world on blocks that
+    # outgrow its workspace
     blocks = torch.randn((2, 1 << 16), generator=gen, device=DEVICE)
     group = fgrid.group(fgrid.axis_names[0])
     PK.a2a(blocks, group)
-    seen, reported = traced_k2_launches(torch, PK,
-                                        lambda: PK.a2a(blocks, group))
-    res["k2_traced"] = {"kernels": seen, "reported": reported}
-    if not (sum(seen.values()) == reported == 4
-            and seen.get("signal_wait_kernel") == 2):
-        raise AssertionError(f"rank {rank}: one K2 exchange ran {seen} on "
-                             f"the card and reported {reported} CUDA "
-                             f"launches; expected 2 waits and 2 moves")
+    ws = symmetric.workspace(group, blocks.device, 0)
+    res["k2_traced"] = traced_exchange(torch, PK,
+                                       lambda: PK.a2a(blocks, group))
+    check_traced(rank, "K2", res["k2_traced"], ws, ws.size)
+    hgroup = hgrid.group(hgrid.axis_names[0])
+    hb = torch.randn(hgrid.buffer_shape(0, he), generator=gen, device=DEVICE)
+    m = hb.shape[1] - 2
+
+    def k3():
+        PK.halo_exchange(hb, hgroup, 1, 1, m, (N // 2,) * 2, True)
+
+    k3()
+    hws = symmetric.workspace(hgroup, hb.device, 0)
+    res["k3_traced"] = traced_exchange(torch, PK, k3)
+    check_traced(rank, "K3", res["k3_traced"], hws, hws.size)
+    del hb
     testing.check_workspace_growth(torch.device(DEVICE), seed=3)
     res["grad"] = grad_ranks(torch, ct, PK, rank, gen)
     res["k2_library"] = gloo_a2a_time(torch, dist, fgrid, gen)
@@ -1328,12 +1380,14 @@ def peer_phase(torch, perf):
         k2s["plain_ms"] = t(lambda: PK.apply_plans(plan1, [x], [out]), 100)
         k2s["clone_ms"] = t(x.clone, 100)
         # after the timings, so that no profiler session precedes them
-        k2s["traced"], reported = traced_k2_launches(
-            torch, PK, lambda: PK.a2a(x, None))
-        if not (k2s["traced"] == {"copy_kernel": 1} and reported == 1):
-            raise AssertionError(f"K2s: one call ran {k2s['traced']} on the "
-                                 f"card and reported {reported} CUDA "
-                                 f"launches; expected one copy_kernel")
+        traced = traced_exchange(torch, PK, lambda: PK.a2a(x, None))
+        k2s["traced"] = traced["kernels"]
+        if not (traced["kernels"] == {"copy_kernel": 1} and not
+                traced["other"] and (traced["reported"],
+                                     traced["memops"]) == (1, 0)):
+            raise AssertionError(f"K2s: one call ran {traced} on the card; "
+                                 f"expected one copy_kernel, reported, and "
+                                 f"no stream memory operation")
         k2s["bytes"] = 2 * x.numel() * 4
         res["k2s"] = k2s
         symmetric.release_workspaces()
@@ -2044,24 +2098,31 @@ def main() -> int:
     mps = ("MPS on" if peer["mps"] else "no MPS: the four ranks time-slice "
            "the card")
     print(f"K2s: a2a_smoke bit-equal on a one-rank gloo group (K2 "
-          f"{k2s['launches']} exchange in {k2s['cuda_launches']} CUDA "
-          f"launch, K1 {k2s['k1']} launch); kernels the profiler saw in one "
+          f"{k2s['launches']} exchange in {k2s['cuda_launches']} kernel, "
+          f"K1 {k2s['k1']} launch); kernels the profiler saw in one "
           f"call: {k2s['traced']}")
     rel = max(r["rel_l2"] for r in ranks)
+    per_k2 = [(r["fft_k2_cuda"] / r["fft_k2"],
+               r["fft_k2_memops"] / r["fft_k2"]) for r in ranks]
     print(f"{PEER_RANKS} ranks on one card over gloo (compute mode "
           f"{peer['compute_mode']}, {mps}), {peer['ranks_s']:.1f} s: 512^3 "
           f"c64 PALLAS_A2A round trip at pdims (2, 2): forward rel L2 err vs "
           f"complex128 torch.fft.fftn {rel:.3e} (<= {RTOL_FFT}), round trip "
           f"max abs err "
           f"{max(r['roundtrip_err'] for r in ranks):.3e} (< {GATE}), K2 "
-          f"launches per rank {[r['fft_k2'] for r in ranks]}, CUDA launches "
-          f"per K2 exchange "
-          f"{[r['fft_k2_cuda'] / r['fft_k2'] for r in ranks]} (the "
-          f"profiler saw {ranks[0]['k2_traced']['kernels']} in one exchange "
-          f"on rank 0); 512^3 f32 "
+          f"launches per rank {[r['fft_k2'] for r in ranks]}, kernels and "
+          f"stream memory operations per K2 exchange {per_k2}"
+          f" (the profiler saw {ranks[0]['k2_traced']['kernels']} in one K2 "
+          f"exchange and {ranks[0]['k3_traced']['kernels']} in one K3 "
+          f"update on rank 0, and no other device record: it records no "
+          f"stream memory operation; rank 0's pads after them "
+          f"{ranks[0]['k2_traced']['pad']}, "
+          f"{ranks[0]['k3_traced']['pad']}); 512^3 f32 "
           f"HaloMethod.PALLAS width 1, periodic and not, bit-equal to the "
           f"plain wrapped-index buffer, K3 launches per rank and update "
-          f"{[r['halo_k3'] for r in ranks]}; path launches {path}; "
+          f"{[r['halo_k3'] for r in ranks]}, (kernels, stream memory "
+          f"operations) per rank {[r['halo_k3_cuda'] for r in ranks]}; "
+          f"path launches {path}; "
           f"{PEER_SMALL} at pdims (1, 4) and (4, 1): K2 ({small['K2']} "
           f"launches) and K3 ({small['K3']}) bit-equal to their plain "
           f"versions over gloo; K2 grew the world's workspace past 1 MiB, "

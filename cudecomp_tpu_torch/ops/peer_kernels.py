@@ -20,28 +20,47 @@ tensor).  The CUDA launch uploads the plan as a table and runs it;
 :func:`apply_plans` runs the plans of all P ranks in one process over
 lists of P tensors, so the addressing is tested without a card.  At P = 1
 K2 has no peer: its plan is one move, which runs as one launch with no
-barrier and no workspace.
+signal and no workspace.
+
+How the ranks of an exchange wait for each other is a pure function too,
+:func:`sync_schedule`: each rank's stream operations for exchange e, in
+order, the puts into half e % 2 of the peers' receive regions, a signal
+of e + 1 to every other rank of the group, a wait for theirs and the
+unpacks.  The signal and the wait are stream memory operations of the
+driver, not kernels: no kernel spins while a rank waits.  The tests run
+the schedules of all ranks under random interleavings
+(``tests/test_torch_peer_sync.py``).  A stream wait has no timer, so a
+:class:`Watchdog` thread watches two CUDA events around each exchange
+and ends the process, naming the rank and the epoch, when one has waited
+:data:`WAIT_BOUND_S` seconds for its peers.
 
 The host path of an exchange is cached on its workspace per plan and
 pointer alignment (:class:`_Launch`: the plan's device tables, the word
 size and the ctypes arguments), so a call costs a lookup, the epoch
-increment and one ctypes call.
+increment, two event records and one ctypes call.
 
-:func:`a2a` and :func:`halo_exchange` launch their kernel on a CUDA tensor
-or raise.  The callers choose the plain versions for CPU tensors, as the
-JAX package does off the TPU (``pallas_kernels.py:196-197``):
+:func:`a2a` and :func:`halo_exchange` launch their kernels on a CUDA
+tensor or raise.  The callers choose the plain versions for CPU tensors,
+as the JAX package does off the TPU (``pallas_kernels.py:196-197``):
 ``parallel/collectives.exchange_pallas_a2a`` takes ``exchange_all_to_all``
 and ``ops/halo.py`` its ``ppermute`` ring.  ``a2a_launch_count`` and
 ``halo_launch_count`` count exchanges (one exchange, its CUDA launches
-together, is one launch); ``a2a_cuda_launch_count`` adds up the kernels
-that K2's C entries report they launched (1 per exchange at P = 1, 4 at
-P > 1).
+together, is one launch); ``a2a_cuda_launch_count`` and
+``halo_cuda_launch_count`` add up the kernels that the C entries report
+they launched (1 per K2 exchange at P = 1, 2 per exchange at P > 1), and
+``a2a_memop_count`` and ``halo_memop_count`` the stream memory operations
+(2 (P - 1) per exchange at P > 1).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import os
+import sys
+import threading
+import time
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -52,44 +71,72 @@ from cudecomp_tpu_torch.parallel import symmetric
 from cudecomp_tpu_torch.utils import cuda_build
 
 SOURCES = ("peer.cu",)
-_LAUNCHED = ctypes.POINTER(ctypes.c_int)  # out: the kernels launched
-_EXCHANGE_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                  ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p,
-                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, _LAUNCHED)
+_INT_OUT = ctypes.POINTER(ctypes.c_int)  # out: kernels, memory operations
+_EXCHANGE_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                  ctypes.c_int64, ctypes.c_void_p, _INT_OUT, _INT_OUT)
 SIGNATURES = (
+    ("cudecomp_peer_sync_caps", (_INT_OUT,), ctypes.c_int),
     ("cudecomp_peer_a2a", (ctypes.c_void_p, ctypes.c_void_p)
      + _EXCHANGE_ARGS, ctypes.c_int),
     ("cudecomp_peer_copy", (ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                            _LAUNCHED),
+                            _INT_OUT),
      ctypes.c_int),
     ("cudecomp_peer_halo", (ctypes.c_void_p,) + _EXCHANGE_ARGS,
      ctypes.c_int),
 )
+#: csrc/peer.cu returns DRIVER_ERROR + the CUresult of a failed stream
+#: memory operation
+DRIVER_ERROR = 10000
+_SYNC_STATUS = {1: "a driver entry point of the stream memory operations is "
+                   "missing",
+                2: "a device attribute query failed",
+                3: "the device has no 64-bit stream memory operations "
+                   "(CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS)"}
+#: the receive region of a workspace is two halves, one per epoch parity
+HALVES = 2
 #: K2 exchanges (K2s included) since the last :func:`reset_launch_counts`
 a2a_launch_count = 0
-#: K2's CUDA launches, as its C entries report them, since the last
+#: K2's kernels, as its C entries report them, since the last
 #: :func:`reset_launch_counts`
 a2a_cuda_launch_count = 0
+#: K2's stream memory operations, as its C entry reports them
+a2a_memop_count = 0
 #: K3 exchanges since the last :func:`reset_launch_counts`
 halo_launch_count = 0
+#: K3's kernels and stream memory operations, as its C entry reports them
+halo_cuda_launch_count = 0
+halo_memop_count = 0
 
 
 def reset_launch_counts() -> None:
-    global a2a_launch_count, a2a_cuda_launch_count, halo_launch_count
-    a2a_launch_count = 0
-    a2a_cuda_launch_count = 0
-    halo_launch_count = 0
+    global a2a_launch_count, a2a_cuda_launch_count, a2a_memop_count
+    global halo_launch_count, halo_cuda_launch_count, halo_memop_count
+    a2a_launch_count = a2a_cuda_launch_count = a2a_memop_count = 0
+    halo_launch_count = halo_cuda_launch_count = halo_memop_count = 0
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    return cuda_build.load("peer", SOURCES, SIGNATURES)
+    """The library, built and probed, on a device that can run its stream
+    memory operations; raises otherwise (no exchange could run)."""
+    lib = cuda_build.load("peer", SOURCES, SIGNATURES)
+    caps = (ctypes.c_int * 2)()
+    status = lib.cudecomp_peer_sync_caps(caps)
+    if status:
+        raise RuntimeError(f"K2 and K3 cannot synchronise on "
+                           f"{torch.cuda.get_device_name()}: "
+                           f"{_SYNC_STATUS.get(status, status)}")
+    return lib
 
 
 def build():
-    """Compile (if needed) and load K2 and K3 (K0 probes them); returns the
-    library's path."""
+    """Compile (if needed) and load K2 and K3 (K0 probes them; the device
+    must offer 64-bit stream memory operations); returns the library's
+    path."""
     _lib()
     return cuda_build.library_path("peer",
                                    cuda_build.library_sources(SOURCES))
@@ -119,8 +166,10 @@ class Move(NamedTuple):
 
 class Plan(NamedTuple):
     """What one rank moves in one exchange.  ``peers``: the group ranks it
-    signals and waits for (those it puts to are those that put to it; none
-    means no barrier); ``recv_bytes``: the receive region it needs."""
+    moves bytes with (K2: the whole group, itself included; K3: the
+    neighbours it puts to, which are those that put to it; none at P = 1);
+    the ranks it signals and waits for are :func:`sync_peers`'s.
+    ``recv_bytes``: the receive region it needs."""
     peers: Tuple[int, ...]
     puts: Tuple[Move, ...]
     unpacks: Tuple[Move, ...]
@@ -132,8 +181,8 @@ def a2a_plan(P: int, me: int, block_bytes: int) -> Plan:
     block goes straight to the output (the local DMA, ``:104-110``), block
     ``p`` to rank p's receive region, in slot ``me - (me > p)`` of its P-1
     senders, in the Pallas kernel's order me, me+1, ... (``:105-124``);
-    after the barrier the P-1 received blocks are copied out, two runs
-    around the self block.  At P = 1 there is no peer, no barrier and no
+    after the wait the P-1 received blocks are copied out, two runs
+    around the self block.  At P = 1 there is no peer, no signal and no
     receive region (``:88``)."""
     bb = block_bytes
     puts = tuple(Move(OWN, me * bb, bb, me * bb, bb, 1, bb) if p == me
@@ -213,6 +262,146 @@ def apply_plans(plans: Sequence[Plan], srcs: Sequence[torch.Tensor],
     return dsts
 
 
+# -- the synchronisation -------------------------------------------------------
+
+class StreamOp(NamedTuple):
+    """One operation of a rank's stream in exchange ``epoch``
+    (``csrc/peer.cu``).  ``kind``: ``"puts"`` and ``"unpacks"`` (one
+    kernel each, running ``moves`` in half ``half`` of the receive
+    regions), ``"signal"`` (stream writes of ``value`` into this rank's
+    slot of the pads of ``ranks``) or ``"wait"`` (stream waits until the
+    slots of ``ranks`` in this rank's pad are >= ``value``)."""
+    kind: str
+    epoch: int
+    half: int
+    moves: Tuple[Move, ...] = ()
+    ranks: Tuple[int, ...] = ()
+    value: int = 0
+
+
+def sync_peers(P: int, me: int) -> Tuple[int, ...]:
+    """The ranks that rank ``me`` of ``P`` signals and waits for in every
+    exchange: every other rank of the group, whatever the plan (see
+    :func:`sync_schedule`)."""
+    return tuple(r for r in range(P) if r != me)
+
+
+def sync_schedule(plan: Plan, me: int, P: int, e: int) -> Tuple[StreamOp, ...]:
+    """Rank ``me``'s stream operations, in order, for exchange ``e`` of
+    ``plan`` over ``P`` ranks, as ``csrc/peer.cu`` issues them: the puts
+    into half ``e % 2`` of the peers' receive regions, a signal of
+    ``e + 1`` to every other rank, a wait for their ``e + 1`` and the
+    unpacks from half ``e % 2``.  At P = 1 (K2s) the puts alone.
+
+    Two halves instead of an entry barrier: a put of exchange e into rank
+    q's half must follow q's unpack of e - 2 from it, and it follows this
+    rank's wait of e - 1, which q's signal of e - 1, issued after that
+    unpack, satisfies.  The wait of e - 1 covers q only if every exchange
+    waits for every rank, so that exchanges of other plans (K2 and K3, a
+    non-periodic edge) may share the workspace."""
+    half = e % HALVES
+    puts = StreamOp("puts", e, half, plan.puts)
+    if P == 1:
+        return (puts,)
+    peers = sync_peers(P, me)
+    return (puts, StreamOp("signal", e, half, ranks=peers, value=e + 1),
+            StreamOp("wait", e, half, ranks=peers, value=e + 1),
+            StreamOp("unpacks", e, half, plan.unpacks))
+
+
+#: seconds an exchange may wait for its peers, counted from when its stream
+#: has run everything before it, before the watchdog ends the process
+WAIT_BOUND_S = 20.0
+#: how often the watchdog looks at the exchanges in flight
+POLL_S = 0.1
+#: the exit status of a process that the watchdog ends
+LOST_PEER_EXIT = 70
+
+
+def _end_process(message: str) -> None:
+    sys.stderr.write(message + "\n")
+    sys.stderr.flush()
+    os._exit(LOST_PEER_EXIT)
+
+
+class _Pending:
+    __slots__ = ("what", "rank", "size", "epoch", "peers", "reached", "done",
+                 "since")
+
+    def __init__(self, what, rank, size, epoch, peers, reached, done):
+        self.what, self.rank, self.size, self.epoch = what, rank, size, epoch
+        self.peers, self.reached, self.done = peers, reached, done
+        self.since = None  # the clock when ``reached`` was first seen
+
+
+class Watchdog:
+    """Ends the process when an exchange has waited longer than
+    :data:`WAIT_BOUND_S` seconds for its peers: a lost peer, or one that
+    never makes the exchange.  A stream wait has no timer of its own, so
+    each exchange is tracked by two events, ``reached`` (recorded before
+    its puts) and ``done`` (after its unpacks); an exchange whose
+    ``reached`` has completed and whose ``done`` has not, ``bound_s``
+    seconds after ``reached`` was first seen, calls ``fail`` with a
+    message naming the group rank, the group size, the epoch and the
+    peers.  So the process ends between ``bound_s`` and ``bound_s`` +
+    2 ``POLL_S`` seconds after its stream reached the exchange (20 to 20.2
+    s by default; the puts' time counts in it).  ``poll`` looks
+    once; ``track`` starts a daemon thread that polls every
+    :data:`POLL_S` seconds.  ``clock``, ``fail`` and the events (anything
+    with ``query()``) are parameters, so that the CPU tests drive it."""
+
+    def __init__(self, bound_s=None, clock=time.monotonic, fail=_end_process):
+        self.bound_s, self.clock, self.fail = bound_s, clock, fail
+        self._pending = []
+        self._lock = threading.Lock()
+        self._thread = None
+
+    def track(self, what, rank, size, epoch, peers, reached, done,
+              thread=True) -> None:
+        with self._lock:
+            self._pending.append(_Pending(what, rank, size, epoch, peers,
+                                          reached, done))
+            if thread and self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._run, name="cudecomp-peer-watchdog",
+                    daemon=True)
+                self._thread.start()
+
+    def poll(self) -> bool:
+        """Look once; True when an exchange has waited past the bound
+        (``fail`` was called)."""
+        now = self.clock()
+        bound = WAIT_BOUND_S if self.bound_s is None else self.bound_s
+        with self._lock:
+            pending = list(self._pending)
+        finished = set()
+        for p in pending:
+            if p.done.query():
+                finished.add(id(p))
+                continue
+            if p.since is None and p.reached.query():
+                p.since = now
+            if p.since is not None and now - p.since > bound:
+                self.fail(f"cudecomp peer exchange: {p.what} on group rank "
+                          f"{p.rank} of {p.size} waited {now - p.since:.1f}"
+                          f" s (bound {bound:g} s) at epoch {p.epoch} for "
+                          f"ranks {list(p.peers)} to signal: a peer is lost "
+                          f"or never made this exchange; ending the process")
+                return True
+        with self._lock:
+            self._pending = [p for p in self._pending
+                             if id(p) not in finished]
+        return False
+
+    def _run(self) -> None:
+        while not self.poll():
+            time.sleep(POLL_S)
+
+
+#: the watchdog of this process's exchanges
+WATCHDOG = Watchdog()
+
+
 # -- the CUDA launch -----------------------------------------------------------
 
 def move_tables(plan: Plan, me: int, device) -> Tuple[torch.Tensor, ...]:
@@ -244,8 +433,10 @@ def _alignment(*ptrs: int) -> int:
 
 class _Launch(NamedTuple):
     """One plan made ready to run on a workspace: its device tables (kept
-    alive here) and the ctypes arguments before and after the epoch."""
+    alive here), the ranks it signals and waits for, and the ctypes
+    arguments before and after the epoch."""
     tables: Tuple[torch.Tensor, ...]
+    peers: Tuple[int, ...]
     head: tuple
     tail: tuple
 
@@ -255,11 +446,19 @@ def _prepare(plan: Plan, ws, align: int) -> _Launch:
     wb = word_bytes(plan, align)
     max_words = max(mv.rows * mv.row_bytes
                     for mv in plan.puts + plan.unpacks) // wb
-    peers = (ctypes.c_int * len(plan.peers))(*plan.peers)
-    return _Launch(tables,
-                   (ws.bases_dev.data_ptr(), ws.rank, peers, len(plan.peers)),
+    peers = sync_peers(ws.size, ws.rank)
+    return _Launch(tables, peers,
+                   (ws.bases_dev.data_ptr(), ws.bases_host, ws.rank,
+                    (ctypes.c_int * len(peers))(*peers), len(peers)),
                    (tables[0].data_ptr(), len(plan.puts),
-                    tables[1].data_ptr(), len(plan.unpacks), max_words, wb))
+                    tables[1].data_ptr(), len(plan.unpacks), max_words, wb,
+                    ws.recv_bytes // HALVES))
+
+
+def _workspace(group, device, recv_bytes: int):
+    """The group's workspace, with room for two receive regions of
+    ``recv_bytes`` (one per epoch parity)."""
+    return symmetric.workspace(group, device, HALVES * recv_bytes)
 
 
 def _check_tensor(x: torch.Tensor, what: str) -> None:
@@ -270,32 +469,44 @@ def _check_tensor(x: torch.Tensor, what: str) -> None:
 
 
 def _raise_on(err: int, lib, what: str, rank: int, size: int) -> None:
-    if err != 0:
+    if err == 0:
+        return
+    if err >= DRIVER_ERROR:
+        msg = (f"a stream memory operation failed with CUresult "
+               f"{err - DRIVER_ERROR}")
+    else:
         msg = lib.cudecomp_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed on group rank {rank} of "
-                           f"{size}: {msg} ({err})")
+    raise RuntimeError(f"{what} launch failed on group rank {rank} of "
+                       f"{size}: {msg} ({err})")
 
 
-def _launch(entry: str, what: str, tensors, key, make_plan, ws) -> int:
+def _launch(entry: str, what: str, tensors, key, make_plan, ws):
     """Run the plan of ``key`` on workspace ``ws`` through the C entry
     ``entry``, whose leading arguments are the data pointers of
     ``tensors``; ``make_plan()`` builds the plan the first time the key
-    (with the pointers' alignment) is seen.  Returns the CUDA launches
-    that the entry reports it made."""
+    (with the pointers' alignment) is seen.  The exchange is tracked by
+    :data:`WATCHDOG`.  Returns the kernels and the stream memory
+    operations that the entry reports it issued."""
     lib = _lib()
     ptrs = [t.data_ptr() for t in tensors]
     full = (key, _alignment(*ptrs))
     launch = ws.launches.get(full)
     if launch is None:
         launch = ws.launches[full] = _prepare(make_plan(), ws, full[1])
-    launched = ctypes.c_int(0)
+    launched, memops = ctypes.c_int(0), ctypes.c_int(0)
+    epoch = ws.next_exchange()
     with torch.cuda.device(ws.device):
-        stream = torch.cuda.current_stream(ws.device).cuda_stream
-        err = getattr(lib, entry)(*ptrs, *launch.head, ws.next_exchange(),
-                                  *launch.tail, stream,
-                                  ctypes.byref(launched))
+        s = torch.cuda.current_stream(ws.device)
+        reached, done = torch.cuda.Event(), torch.cuda.Event()
+        reached.record(s)
+        err = getattr(lib, entry)(*ptrs, *launch.head, epoch, *launch.tail,
+                                  s.cuda_stream, ctypes.byref(launched),
+                                  ctypes.byref(memops))
+        done.record(s)
     _raise_on(err, lib, what, ws.rank, ws.size)
-    return launched.value
+    WATCHDOG.track(what, ws.rank, ws.size, epoch, launch.peers, reached,
+                   done)
+    return launched.value, memops.value
 
 
 # -- K2 and K2s ----------------------------------------------------------------
@@ -304,8 +515,8 @@ def a2a(blocks: torch.Tensor, group) -> torch.Tensor:
     """K2: the one-sided all-to-all of the CUDA tensor ``blocks`` (P equal
     blocks along dim 0, block p for group rank p) over ``group``; returns a
     new tensor holding in block q what rank q sent.  At P = 1 it is K2s's
-    program: one copy, no barrier, no workspace."""
-    global a2a_launch_count, a2a_cuda_launch_count
+    program: one copy, no signal, no workspace."""
+    global a2a_launch_count, a2a_cuda_launch_count, a2a_memop_count
     P = dist.get_world_size(group)
     if blocks.dim() < 1 or blocks.shape[0] % P:
         raise ValueError(f"K2 needs {P} equal blocks along dim 0, got shape "
@@ -325,13 +536,15 @@ def a2a(blocks: torch.Tensor, group) -> torch.Tensor:
                                          bb // wb, wb, stream,
                                          ctypes.byref(launched))
         _raise_on(err, lib, "K2", 0, 1)
-        launches = launched.value
+        launches, memops = launched.value, 0
     else:
-        ws = symmetric.workspace(group, blocks.device, (P - 1) * bb)
-        launches = _launch("cudecomp_peer_a2a", "K2", (blocks, out),
-                           ("a2a", bb), lambda: a2a_plan(P, ws.rank, bb), ws)
+        ws = _workspace(group, blocks.device, (P - 1) * bb)
+        launches, memops = _launch(
+            "cudecomp_peer_a2a", "K2", (blocks, out), ("a2a", bb),
+            lambda: a2a_plan(P, ws.rank, bb), ws)
     a2a_launch_count += 1
     a2a_cuda_launch_count += launches
+    a2a_memop_count += memops
     return out
 
 
@@ -361,13 +574,16 @@ def halo_exchange(arr: torch.Tensor, group, i_d: int, h: int, m: int,
     """K3: update the two halos of array dim ``i_d`` of the CUDA tensor
     ``arr`` in place (``halo_exchange_pallas``), width ``h``, max split
     ``m``, rank r's valid extent ``splits[r]``."""
-    global halo_launch_count
+    global halo_launch_count, halo_cuda_launch_count, halo_memop_count
     P = dist.get_world_size(group)
     if len(splits) != P:
         raise ValueError(f"{len(splits)} splits for a group of {P} ranks")
     _check_tensor(arr, "K3")
     plan = halo_plan(tuple(arr.shape), arr.element_size(), i_d, h, m, splits,
                      dist.get_rank(group), periodic)
-    ws = symmetric.workspace(group, arr.device, plan.recv_bytes)
-    _launch("cudecomp_peer_halo", "K3", (arr,), plan, lambda: plan, ws)
+    ws = _workspace(group, arr.device, plan.recv_bytes)
+    launches, memops = _launch("cudecomp_peer_halo", "K3", (arr,), plan,
+                               lambda: plan, ws)
     halo_launch_count += 1
+    halo_cuda_launch_count += launches
+    halo_memop_count += memops

@@ -13,16 +13,20 @@ refuses to rendezvous ranks on one device unless
 the process has not.  A workspace holds
 
   * a signal pad of one 8-byte slot per group rank (its first
-    ``PAD_BYTES``), written by the kernels' barrier (``csrc/peer.cu``);
-  * the receive region, after the pad;
+    ``PAD_BYTES``), written by the peers' stream memory operations
+    (``csrc/peer.cu``);
+  * the receive region, after the pad, in two halves (one per epoch
+    parity, ``ops/peer_kernels.sync_schedule``);
   * ``bases_dev``: a device array of the group's buffer addresses as this
-    rank maps them, indexed by group rank (this rank's own at its rank);
+    rank maps them, indexed by group rank (this rank's own at its rank),
+    and ``bases_host``, the same addresses in host memory (a ctypes
+    array, for the stream memory operations);
   * ``launches``: the plans run on it, made ready to launch
     (``ops/peer_kernels.py``: their device tables and ctypes arguments),
     which go when the workspace goes.
 
-The library only allocates and maps; the barrier, the puts and the signals
-are the kernels' own code (no ``barrier()`` of the handle, no
+The library only allocates and maps; the puts, the signals and the waits
+are the port's own code (no ``barrier()`` of the handle, no
 ``torch.ops.symm_mem``).  Set-up is collective over the group, which may
 be gloo.  A workspace is cached per (group, device) and grown on demand, as
 the JAX package keys its kernels' collective ids per mesh axis
@@ -34,6 +38,7 @@ new one with a zeroed pad and its exchange count at 0.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Dict, Tuple
 
@@ -75,11 +80,18 @@ class Workspace:
         # the pad starts at 0 (csrc/peer.cu), zeroed through the view
         # the peers address; no rank signals before every rank has zeroed
         self._handle.get_buffer(self.rank, (PAD_BYTES,), torch.uint8).zero_()
-        self.bases_dev = torch.tensor(
-            [int(p) for p in self._handle.buffer_ptrs], dtype=torch.int64,
-            device=device)
+        ptrs = [int(p) for p in self._handle.buffer_ptrs]
+        self.bases_host = (ctypes.c_uint64 * self.size)(*ptrs)
+        self.bases_dev = torch.tensor(ptrs, dtype=torch.int64, device=device)
         torch.cuda.synchronize(device)
         dist.barrier(group=group)
+
+    def signals(self) -> list:
+        """The slots of this rank's signal pad, after the device's work is
+        done: slot r holds the last value group rank r wrote into it."""
+        torch.cuda.synchronize(self.device)
+        return self._handle.get_buffer(self.rank, (self.size,),
+                                       torch.int64).tolist()
 
     def next_exchange(self) -> int:
         """The index of the next exchange on this workspace (its epoch)."""
@@ -92,7 +104,7 @@ class Workspace:
         every rank of the group is done with them (collective)."""
         torch.cuda.synchronize(self.device)
         dist.barrier(group=self.group)
-        self._handle = self._buf = self.bases_dev = None
+        self._handle = self._buf = self.bases_dev = self.bases_host = None
         self.launches.clear()
 
 

@@ -687,7 +687,8 @@ def check_peer_kernels(device, gdims=(66, 70, 74), seed=0) -> dict:
     ranks:
 
       * K2 called directly over each sharded mesh dim, twice in a row with
-        different data (its entry barrier makes reusing the workspace safe);
+        different data (the two halves of its receive region make reusing
+        the workspace safe);
       * the four ``PALLAS_A2A`` transposes of a seeded field;
       * ``HaloMethod.PALLAS`` updates of the x-pencil, widths 1 and 2,
         periodic and not, also held to :func:`expected_halo_buffer`.
@@ -755,8 +756,10 @@ def check_workspace_growth(device, seed=0) -> None:
     of CPU copies.  The second exchange grows the world's workspace: a new
     one with the larger receive region, its exchange count started at 0
     and only the second plan's launch record in it; the old one is
-    released.  Each exchange is four CUDA launches, as the C entry reports
-    them.  Raises AssertionError on a difference."""
+    released.  Each exchange is two kernels and 2 (W - 1) stream memory
+    operations, as the C entry reports them, and after it every other
+    rank's signal is in this rank's pad.  Raises AssertionError on a
+    difference."""
     import torch.distributed as dist
 
     from cudecomp_tpu_torch.ops import peer_kernels as PK
@@ -766,7 +769,7 @@ def check_workspace_growth(device, seed=0) -> None:
     if W < 2:
         raise ValueError("a workspace grows over two ranks or more")
     gen = torch.Generator().manual_seed(seed * 1000 + rank + 1)
-    seen, cuda0 = [], PK.a2a_cuda_launch_count
+    seen, cuda0, memops0 = [], PK.a2a_cuda_launch_count, PK.a2a_memop_count
     for cols in (64, symmetric.GROW_ALIGN // 4 // (W - 1) + 1):
         blocks = torch.randn((W, cols), generator=gen, dtype=torch.float32)
         got = PK.a2a(blocks.to(device), None)
@@ -777,19 +780,24 @@ def check_workspace_growth(device, seed=0) -> None:
                                  f"{rank}")
         seen.append((symmetric.workspace(None, got.device, 0), 4 * cols))
     (small, bb_small), (grown, bb) = seen
-    need = -(-(W - 1) * bb // symmetric.GROW_ALIGN) * symmetric.GROW_ALIGN
+    halves = PK.HALVES * (W - 1)
+    need = -(-halves * bb // symmetric.GROW_ALIGN) * symmetric.GROW_ALIGN
+    pad = grown.signals()
     facts = {
         "a new workspace": grown is not small,
         "the old one released": small.bases_dev is None
         and not small.launches,
         "the first one too small for the second exchange":
-            (W - 1) * bb_small <= small.recv_bytes < (W - 1) * bb,
+            halves * bb_small <= small.recv_bytes < halves * bb,
         f"a receive region of {need} bytes": grown.recv_bytes == need,
         "its exchanges counted from 0": grown.exchanges == 1,
         "only the new plan's launch record":
             [k[0] for k in grown.launches] == [("a2a", bb)],
-        "four CUDA launches per exchange":
-            PK.a2a_cuda_launch_count - cuda0 == 8,
+        "two kernels per exchange": PK.a2a_cuda_launch_count - cuda0 == 4,
+        "2 (W - 1) stream memory operations per exchange":
+            PK.a2a_memop_count - memops0 == 4 * (W - 1),
+        "every other rank's signal of epoch 0 in the pad":
+            all(v >= 1 for r, v in enumerate(pad) if r != rank),
     }
     failed = [k for k, ok in facts.items() if not ok]
     if failed:
@@ -797,8 +805,10 @@ def check_workspace_growth(device, seed=0) -> None:
                              f"{failed} (recv_bytes {small.recv_bytes} -> "
                              f"{grown.recv_bytes}, exchanges "
                              f"{grown.exchanges}, launches "
-                             f"{list(grown.launches)}, CUDA launches "
-                             f"{PK.a2a_cuda_launch_count - cuda0})")
+                             f"{list(grown.launches)}, kernels "
+                             f"{PK.a2a_cuda_launch_count - cuda0}, stream "
+                             f"memory operations "
+                             f"{PK.a2a_memop_count - memops0}, pad {pad})")
 
 
 def card_ranks_worker(rank: int, world: int, init_file: str, body,
@@ -830,6 +840,32 @@ def check_peer_ranks(rank: int, gdims=(10, 12, 14)) -> None:
     :func:`check_workspace_growth` on ``cuda:0``."""
     check_peer_kernels(torch.device("cuda", 0), gdims)
     check_workspace_growth(torch.device("cuda", 0))
+
+
+def lost_peer_rank(rank: int, init_file: str, bound_s: float) -> None:
+    """One of two ranks on ``cuda:0`` over a gloo world joined through
+    ``init_file``, whose rank 1 is lost: both make the world's workspace;
+    rank 0 runs one K2 exchange and waits for it, which cannot end, so
+    the watchdog ends rank 0's process ``bound_s`` seconds after its stream
+    reached the exchange (``peer_kernels.LOST_PEER_EXIT``, the message on
+    stderr); rank 1 never makes the exchange and leaves unannounced after
+    ``bound_s`` + 60 seconds."""
+    import torch.distributed as dist
+
+    from cudecomp_tpu_torch.ops import peer_kernels as PK
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=2)
+    PK.WAIT_BOUND_S = bound_s
+    blocks = torch.zeros((2, 1024), device="cuda")
+    if rank == 0:
+        PK.a2a(blocks, None)
+        torch.cuda.synchronize()
+        raise SystemExit("the exchange ended without its peer's signal")
+    PK._workspace(None, blocks.device, blocks.numel() * 4 // 2)
+    time.sleep(bound_s + 60)
+    os._exit(0)
 
 
 def run_card_ranks(body, world: int, init_file: str, args, timeout: float,

@@ -703,6 +703,7 @@ def test_gpu_kernel_exchanges_never_take_their_plain_version(cuda,
     ws = types.SimpleNamespace(rank=0, size=2, next_exchange=lambda: 0,
                                bases_dev=torch.zeros(2, dtype=torch.int64,
                                                      device=cuda),
+                               bases_host=None, recv_bytes=1 << 20,
                                device=torch.device(cuda), launches={})
     monkeypatch.setattr(collectives, "exchange_all_to_all", plain)
     monkeypatch.setattr(H, "halo_ring", plain)

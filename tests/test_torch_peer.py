@@ -195,6 +195,7 @@ def _fake_workspace(rank=0, size=2, device="cpu"):
     ws.device, ws.group, ws.launches = torch.device(device), None, {}
     ws.rank, ws.size, ws.exchanges = rank, size, 0
     ws.bases_dev = torch.zeros(size, dtype=torch.int64)
+    ws.bases_host, ws.recv_bytes = object(), 4 << 20
     return ws
 
 
@@ -216,33 +217,46 @@ def test_release_drops_the_workspace_tables(monkeypatch):
 @pytest.mark.parametrize("P,me", [(2, 0), (2, 1), (4, 2)])
 def test_a2a_launch_is_prepared_once_per_plan(P, me):
     # what one K2 exchange passes to the C entry besides the tensors, the
-    # epoch and the stream: the workspace bases, the rank, the peer set,
-    # the two device tables with their lengths, the largest move in words
-    # and the word size
+    # epoch and the stream: the workspace bases (device and host), the
+    # rank, the ranks it signals and waits for (every other one), the two
+    # device tables with their lengths, the largest move in words, the
+    # word size and half the receive region
     ws = _fake_workspace(me, P)
     bb = 3 * 1024
     plan = PK.a2a_plan(P, me, bb)
     launch = PK._prepare(plan, ws, 16)
-    bases, rank, peers, npeers = launch.head
-    assert (bases, rank, list(peers), npeers) == (
-        ws.bases_dev.data_ptr(), me, list(range(P)), P)
-    puts, nputs, unpacks, nunpacks, max_words, wb = launch.tail
+    bases, host, rank, peers, npeers = launch.head
+    others = [p for p in range(P) if p != me]
+    assert (bases, host, rank, list(peers), npeers) == (
+        ws.bases_dev.data_ptr(), ws.bases_host, me, others, P - 1)
+    assert launch.peers == tuple(others)
+    puts, nputs, unpacks, nunpacks, max_words, wb, half = launch.tail
     assert (puts, unpacks) == tuple(t.data_ptr() for t in launch.tables)
     assert (nputs, nunpacks) == (P, len(plan.unpacks))
     assert wb == 16 and max_words == max(me, P - 1 - me, 1) * bb // 16
-    assert PK._prepare(plan, ws, 4).tail[-1] == 4  # a 4-byte aligned tensor
+    assert half == ws.recv_bytes // PK.HALVES
+    assert PK._prepare(plan, ws, 4).tail[-2] == 4  # a 4-byte aligned tensor
     assert PK._alignment(256, 512 + 8) == 8 and PK._alignment(64) == 16
 
 
 def test_launch_returns_the_launches_its_entry_reports(monkeypatch):
-    # the CUDA launch count is what the C entry writes to its out-argument,
-    # not a number the wrapper derives from the plan
+    # the kernel and memory-operation counts are what the C entry writes
+    # to its out-arguments, not numbers the wrapper derives from the plan;
+    # each exchange goes to the watchdog between its two events
     calls = []
 
     def entry(*args):
         calls.append(args)
-        args[-1]._obj.value = 3
+        args[-2]._obj.value = 3
+        args[-1]._obj.value = 2
         return 0
+
+    class Event:
+        def record(self, stream):
+            self.stream = stream
+
+        def query(self):
+            return True
 
     monkeypatch.setattr(PK, "_lib", lambda: types.SimpleNamespace(
         cudecomp_peer_a2a=entry))
@@ -250,14 +264,21 @@ def test_launch_returns_the_launches_its_entry_reports(monkeypatch):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(PK.torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(PK.torch.cuda, "Event", Event)
+    dog = PK.Watchdog()
+    monkeypatch.setattr(PK, "WATCHDOG", dog)
+    tracked = []
+    monkeypatch.setattr(dog, "track", lambda *a: tracked.append(a))
     ws = _fake_workspace(0, 2)
     blocks = torch.zeros(8)
     out = torch.empty_like(blocks)
     for _ in range(2):
         assert PK._launch("cudecomp_peer_a2a", "K2", (blocks, out),
-                          ("a2a", 16), lambda: PK.a2a_plan(2, 0, 16), ws) == 3
+                          ("a2a", 16), lambda: PK.a2a_plan(2, 0, 16),
+                          ws) == (3, 2)
     assert len(ws.launches) == 1 and ws.exchanges == 2
-    assert [c[6] for c in calls] == [0, 1]  # the epochs
+    assert [c[7] for c in calls] == [0, 1]  # the epochs
+    assert [a[:5] for a in tracked] == [("K2", 0, 2, e, (1,)) for e in (0, 1)]
 
 
 def test_gloo_refuses_tensors_off_the_cpu(monkeypatch):
