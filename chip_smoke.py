@@ -61,7 +61,9 @@ Phases, each of which raises on failure (nothing is caught):
      conv3d yardstick and its plain version, with the instance that ran
      and its registers and spills, the halo update and the CG iteration;
      K5 at (129, 256, 256) beside its bound, dft2_ref, cuFFT and clone()
-     of the same bytes (GB/s), with the cluster size it launches; the Poisson solve with K5 on and off, the Taylor-Green step
+     of the same bytes (GB/s), with the cluster size it launches; K0
+     beside clone() and its launch floor (an empty kernel's launch); the
+     Poisson solve with K5 on and off, the Taylor-Green step
      and the projection-solver step; torch.profiler breakdowns by kernel, with
      the card's idle share, of one FFT round trip, one diffusion step, one
      CG chunk, one Taylor-Green step and one K5 Poisson solve, captured by
@@ -142,13 +144,35 @@ Phases, each of which raises on failure (nothing is caught):
      dryrun_multichip(4, "cuda") on the shared card, every rank running
      pallas_a2a and HaloMethod.PALLAS and refusing exactly the stages that
      move CUDA tensors over gloo; the six examples at their default sizes
-     on the card, P = 1, each timed.
+     on the card, P = 1, each timed;
+ 12. the bench table (cudecomp_tpu_torch.bench_full.main) in a fresh
+     process, so that the 1024^3 c64 cell has the card's memory free of
+     this process's cache, written to OUT_DIR/bench_full_h100.json:
+     c2c at 256^3, 512^3 and 512^3 in the natural layout, r2c at 512^3,
+     the 512^3 f32 transpose round trip, the 512^3 halo update and
+     diffusion step, CG at 256^3, then c2c at 768^3, 1024 x 512 x 512 and
+     1024^3, r2c at 768^3 and the f32 transpose round trip at 768^3 and
+     1024^3; every FFT round trip within 5e-4 max abs error, first and on
+     the timed run, every transpose round trip bit-equal to its input,
+     every headline a positive finite value, K1 launched and K5 not
+     (CUDECOMP_TPU_FFT_FUSED2 unset); then one profile_trace of the
+     natural-layout 512^3 and of the 1024^3 round trip, each in a fresh
+     process;
+ 13. the sweep runner (cudecomp_tpu_torch.sweep) on the card:
+     benchmarks/sweep_config_chip.yaml (256^3 and 512^3 f32, pdims
+     (1, 1), both layouts, one rank) and a four-rank matrix on ranks that
+     share the card (66 x 70 x 74 and 256^3, pdims (2, 2), (1, 4) and
+     (4, 1), pallas_a2a and all_to_all, f32, both layouts, checked
+     against the global-index field), each world one spawn, the rows
+     written to OUT_DIR/sweep_*.csv: every one-rank and every
+     pallas_a2a row ok, no FAIL, any ERROR a CannotRun (all_to_all moves
+     CUDA tensors over gloo), K1 and K2 launched.
 
-Before each path (5, 6, 7, the four ranks of 9 and their autotuner, 10
-and each part of 11) every launch count is set to 0 (in 5, 6 and 7 the loaded libraries
+Before each path (5, 6, 7, the four ranks of 9 and their autotuner, 10,
+each part of 11, 12 and each world of 13) every launch count is set to 0 (in 5, 6 and 7 the loaded libraries
 are dropped too, so the path loads them as a fresh process does, and K0
-runs inside it; the ranks of 9 are fresh processes); the counts are read
-just after.  The line
+runs inside it; the ranks of 9 and 13 and the processes of 10 and 12 are
+fresh processes); the counts are read just after.  The line
 before the last is a JSON object describing each kernel; the last line is
 {"ok": true, "device": {...}}.  Exits nonzero, printing neither, when CUDA
 is not available or the package is missing.
@@ -191,23 +215,33 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def card_field(torch, gen, shape, dtype):
+    """Standard-normal values of ``shape`` and ``dtype`` on the card (real
+    and imaginary parts each standard-normal), drawn from ``gen``."""
+    if dtype.is_complex:
+        parts = torch.randn(tuple(shape) + (2,), generator=gen,
+                            device=DEVICE, dtype=dtype.to_real())
+        return torch.view_as_complex(parts)
+    return torch.randn(shape, generator=gen, device=DEVICE,
+                       dtype=torch.float32).to(dtype)
+
+
+def k1_compare(torch, got, want, what):
+    """0.0 when K1's ``got`` is bit-equal to its twin's ``want``; raises
+    otherwise."""
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"K1 differs from its twin: {what}")
+    return 0.0
+
+
 def kernel_checks(torch, K, gen):
     """Phase 3: K1 vs its twin on every dtype and shape class; returns the
     largest absolute difference seen (0.0 when all are bit-equal)."""
-    dev = DEVICE
-
     def field(shape, dtype):
-        if dtype.is_complex:
-            parts = torch.randn(tuple(shape) + (2,), generator=gen,
-                                device=dev, dtype=dtype.to_real())
-            return torch.view_as_complex(parts)
-        return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.float32).to(dtype)
+        return card_field(torch, gen, shape, dtype)
 
     def compare(got, want, what):
-        if got.shape != want.shape or not torch.equal(got, want):
-            raise AssertionError(f"K1 differs from its twin: {what}")
-        return float((got - want).abs().max()) if got.numel() else 0.0
+        return k1_compare(torch, got, want, what)
 
     worst = 0.0
     dtypes = (torch.bfloat16, torch.float32, torch.float64, torch.complex64,
@@ -895,7 +929,8 @@ def dft2_timing(torch, D, perf, gen):
 
 
 def probe_timing(torch, K, cb, perf):
-    """K0 alone on its (8, 128) float32 tensor, beside clone()."""
+    """K0 alone on its (8, 128) float32 tensor, beside clone() and the
+    launch floor: an empty kernel's launch, over 1000 launches a trial."""
     lib = K._lib()
     x = torch.arange(8 * 128, dtype=torch.float32,
                      device=DEVICE).reshape(cb.PROBE_SHAPE)
@@ -907,12 +942,18 @@ def probe_timing(torch, K, cb, perf):
                                    stream):
             raise RuntimeError("K0 launch failed")
 
+    def empty():
+        if lib.cudecomp_probe_empty(stream):
+            raise RuntimeError("the empty kernel failed to launch")
+
     ms = mean(perf.time_fn(launch, n_warmup=3, n_trials=5, iters=100)) * 1e3
     plain = mean(perf.time_fn(x.clone, n_warmup=3, n_trials=5,
                               iters=100)) * 1e3
+    floor = mean(perf.time_fn(empty, n_warmup=10, n_trials=5,
+                              iters=1000)) * 1e3
     launch()
     torch.cuda.synchronize()
-    return ms, plain, float((y - x).abs().max())
+    return ms, plain, float((y - x).abs().max()), floor
 
 
 # -- K2, K2s, K3: the one-sided exchange path on four ranks sharing the card -----
@@ -972,7 +1013,7 @@ def check_traced(rank, what, traced, ws, P):
 
 
 def peer_worker(rank, out_dir):
-    """Phase 9, one of the four ranks (a ``card_ranks_worker`` body: gloo
+    """Phase 9, one of the four ranks (a ``run_card_ranks`` body: gloo
     over ``file://``, every rank on cuda:0).  K2 at the main path's shapes
     against its plain version; the main path (the c64 PALLAS_A2A round trip
     and two HaloMethod.PALLAS updates at pdims (2, 2)) between a reset and a
@@ -1890,14 +1931,202 @@ def phase11(torch, ct, K, S, D, cb, perf, gen):
     return res
 
 
-def fresh_process(worker, what):
-    """``worker(0, out_path)`` in a fresh spawned process on the card; the
-    JSON it wrote to ``out_path``."""
+# -- phase 12: the bench table; phase 13: the sweep --------------------------------
+
+OUT_DIR = "chiprun_out"   # phases 12 and 13 write here; gitignored
+BENCH_FULL_OUT = os.path.join(OUT_DIR, "bench_full_h100.json")
+PROFILE_CELLS = ("natural 512^3", "1024^3")   # phase 12's fresh-process traces
+SWEEP_CHIP_CONFIG = "benchmarks/sweep_config_chip.yaml"
+SWEEP_LAUNCHES = os.path.join(OUT_DIR, "phase13_launches.jsonl")
+# phase 13's four-rank matrix: ranks that share the card, both layouts
+SWEEP_FOUR_RANKS = {
+    "gdims": [list(PEER_SMALL), [256, 256, 256]],
+    "pdims": [[2, 2], [1, 4], [4, 1]],
+    "method": ["pallas_a2a", "all_to_all"],
+    "dtype": ["float32"],
+    "axis_contiguous": [False, True],
+    "halo_extents": [[0, 0, 0]],
+    "padding": [[0, 0, 0]],
+    "check_correctness": True,
+    "n_warmup": 1, "n_trials": 3, "iters": 5}
+
+
+# the shapes phase 12 gives K1 that phase 3 does not hold: the cubes, every
+# rotation of the non-cubic grid and of the r2c 768^3 spectrum
+BENCH_K1_SHAPES = (
+    [("c64", (n,) * 3) for n in (768, 1024)]
+    + [("c64", s) for s in ((1024, 512, 512), (512, 512, 1024),
+                            (512, 1024, 512), (385, 768, 768),
+                            (768, 768, 385), (768, 385, 768))]
+    + [("f32", (n,) * 3) for n in (768, 1024)])
+
+
+def bench_k1_checks(torch, K):
+    """K1 vs its twin at :data:`BENCH_K1_SHAPES`, every cyclic perm, one
+    shape on the card at a time (1024^3 c64: input, K1's and the twin's
+    outputs, 24 GiB); the largest absolute difference (0.0: bit-equal)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(12)
+    dtypes = {"c64": torch.complex64, "f32": torch.float32}
+    worst = 0.0
+    for name, shape in BENCH_K1_SHAPES:
+        x = card_field(torch, gen, shape, dtypes[name])
+        for perm in K.CYCLIC_PERMS:
+            got = K.cyclic_permute(x, perm)
+            want = K.cyclic_permute_ref(x, perm)
+            worst = max(worst, k1_compare(torch, got, want,
+                                          f"{name} {shape} {perm}"))
+            del got, want
+        del x
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return worst
+
+
+def bench_worker(rank, out_path):
+    """Phase 12's process (spawned, on cuda:0): ``bench_full.main``, which
+    also writes :data:`BENCH_FULL_OUT`, between a reset and a read of the
+    launch counts; then :func:`bench_k1_checks`, whose launches are not
+    counted; ``{"records", "counts", "k1_err"}`` written to ``out_path``."""
+    import torch
+    from cudecomp_tpu_torch import bench_full
+    from cudecomp_tpu_torch.ops import cuda_kernels as K
+    from cudecomp_tpu_torch.ops import dft2 as D
+    from cudecomp_tpu_torch.ops import stencil_kernel as S
+    from cudecomp_tpu_torch.utils import cuda_build as cb
+    torch.cuda.set_device(0)
+    reset_counts(K, S, D, cb)
+    records = bench_full.main(out=BENCH_FULL_OUT)
+    launched = counts(K, S, D, cb)
+    torch.cuda.empty_cache()
+    k1_err = bench_k1_checks(torch, K)
+    with open(out_path, "w") as fh:
+        json.dump({"records": records, "counts": launched,
+                   "k1_err": k1_err}, fh)
+
+
+def fft_profile_worker(rank, out_path, cell):
+    """One ``profile_trace`` of a bench-table cell's round trip in a fresh
+    process (spawned, on cuda:0): the natural-layout 512^3 c2c round trip
+    (3 traced), or the 1024^3 axis-contiguous plane-carried one (1)."""
+    import torch
+    from cudecomp_tpu_torch import bench, bench_full, performance as perf
+    torch.cuda.set_device(0)
+    if cell == PROFILE_CELLS[0]:
+        plan = bench.make_plan(N, axis_contiguous=False, device=DEVICE)
+        x = bench.make_field(plan.grid, seed=3)
+        prof = profile_window(torch, perf, lambda: bench.cycle(plan, x))
+    else:
+        plan = bench_full.large_plan((1024,) * 3, True, DEVICE)
+        p = bench_full.make_planes(plan.grid)
+        prof = profile_window(torch, perf,
+                              lambda: bench_full.planes_cycle(plan, p),
+                              reps=1)
+    with open(out_path, "w") as fh:
+        json.dump(prof, fh)
+
+
+def bench_phase(torch, card):
+    """Phase 12: the bench table in a fresh process (1024^3 c64 needs the
+    card's memory free of this process's cache), every record checked;
+    then one trace of the natural-layout 512^3 and of the 1024^3 round
+    trip, each in a fresh process."""
+    from cudecomp_tpu_torch import bench_full
+    torch.cuda.empty_cache()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    res = fresh_process(bench_worker, "phase 12's bench table", timeout=900)
+    res["s"] = time.perf_counter() - t0
+    want = [(fn.__name__, kw) for fn, kw in bench_full.table(True)]
+    if len(res["records"]) != len(want):
+        raise AssertionError(f"phase 12: {len(res['records'])} records for "
+                             f"{len(want)} headlines")
+    for r in res["records"]:
+        v = r["value"]
+        if v is None or not math.isfinite(v) or v <= 0:
+            raise AssertionError(f"phase 12: no value in {r}")
+        for k in ("err", "gate_err", "timed_err"):
+            if k in r and not r[k] < GATE:
+                raise AssertionError(f"phase 12: {k} {r[k]} in {r}")
+        if r["device"] != card:
+            raise AssertionError(f"phase 12: device {r['device']!r}")
+    if (res["counts"]["K5"] or res["counts"]["K1"] < 1
+            or res["counts"]["K4"] < 1):
+        raise AssertionError(f"phase 12 launches {res['counts']}: K1 and "
+                             f"K4 must run and K5 must not")
+    res["profiles"] = {}
+    for cell in PROFILE_CELLS:
+        res["profiles"][cell] = fresh_process(
+            fft_profile_worker, f"phase 12's {cell} trace", cell)
+    return res
+
+
+def sweep_counted_body(rank, cases, opts, device, out_path):
+    """A rank of a phase-13 sweep world: ``sweep.world_body`` between a
+    reset and a read of the K1 and K2 launch counts, which rank 0 appends,
+    summed over the world, to :data:`SWEEP_LAUNCHES`."""
+    import torch
+    import torch.distributed as dist
+    from cudecomp_tpu_torch import sweep
+    from cudecomp_tpu_torch.ops import cuda_kernels as K
+    from cudecomp_tpu_torch.ops import peer_kernels as PK
+    K.reset_launch_count()
+    PK.reset_launch_counts()
+    sweep.world_body(rank, cases, opts, device, out_path)
+    n = torch.tensor([K.launch_count, PK.a2a_launch_count])
+    dist.all_reduce(n)
+    if rank == 0:
+        with open(SWEEP_LAUNCHES, "a") as fh:
+            fh.write(json.dumps({"world": dist.get_world_size(),
+                                 "K1": int(n[0]), "K2": int(n[1])}) + "\n")
+
+
+def sweep_phase(torch):
+    """Phase 13: ``benchmarks/sweep_config_chip.yaml`` (one rank) and
+    :data:`SWEEP_FOUR_RANKS` (four ranks sharing the card) through the
+    sweep runner, each world one spawn; the rows written as CSV under
+    :data:`OUT_DIR`.  Fails on a ``FAIL`` row, on an ``ERROR`` row that is
+    no ``CannotRun``, on a row of one rank or of ``pallas_a2a`` that is not
+    ``ok``, and where K1 or K2 never ran."""
+    from cudecomp_tpu_torch import sweep
+    torch.cuda.empty_cache()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(SWEEP_LAUNCHES):
+        os.remove(SWEEP_LAUNCHES)
+    out = {}
+    t0 = time.perf_counter()
+    for name, cfg in (("chip", sweep.read_config(SWEEP_CHIP_CONFIG)),
+                      ("four_ranks", SWEEP_FOUR_RANKS)):
+        rows = sweep.run_sweep(cfg, DEVICE, PEER_RANKS,
+                               body=sweep_counted_body)
+        sweep.write_csv(rows, os.path.join(OUT_DIR, f"sweep_{name}.csv"))
+        for r in rows:
+            one_rank = r["pdims"] in ("(1, 1)", "[1, 1]")
+            if (r["status"] == "FAIL"
+                    or (r["status"] == "ERROR"
+                        and not r["error"].startswith("CannotRun"))
+                    or ((one_rank or r["method"] == "pallas_a2a")
+                        and r["status"] != "ok")):
+                raise AssertionError(f"phase 13 {name}: {r}")
+        out[name] = rows
+    out["s"] = time.perf_counter() - t0
+    with open(SWEEP_LAUNCHES) as fh:
+        out["launches"] = [json.loads(line) for line in fh]
+    k = {key: sum(w[key] for w in out["launches"]) for key in ("K1", "K2")}
+    if min(k.values()) < 1:
+        raise AssertionError(f"phase 13 launches {out['launches']}")
+    out["counts"] = k
+    return out
+
+
+def fresh_process(worker, what, *args, timeout=300):
+    """``worker(0, out_path, *args)`` in a fresh spawned process on the
+    card; the JSON it wrote to ``out_path``."""
     import tempfile
     from cudecomp_tpu_torch.utils.testing import run_ranks
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out.json")
-        run_ranks(worker, 1, (out,), 300, what)
+        run_ranks(worker, 1, (out,) + args, timeout, what)
         with open(out) as fh:
             return json.load(fh)
 
@@ -2054,9 +2283,11 @@ def main() -> int:
     print(f"[{card}] {CG_N}^3 f32 solve_cg tol {CG_TOL:g}: {cg['value']:.1f} "
           f"ms, {cg['iters']} iterations, {cg['ms_per_iter']:.4f} ms per "
           f"iteration, rel residual {cg['rel_residual']:.3e}")
-    k0_ms, k0_plain, k0_err = probe_timing(torch, K, cb, perf)
+    k0_ms, k0_plain, k0_err, k0_floor = probe_timing(torch, K, cb, perf)
     print(f"[{card}] K0 probe copy (8, 128) f32: {k0_ms * 1e3:.2f} us per "
-          f"launch; clone() {k0_plain * 1e3:.2f} us")
+          f"launch; clone() {k0_plain * 1e3:.2f} us; the launch floor (an "
+          f"empty kernel) {k0_floor * 1e3:.2f} us, {k0_floor / k0_ms:.3f} of "
+          f"K0's time")
     torch.cuda.empty_cache()
     k5t = dft2_timing(torch, D, perf, gen)
     k5g, k5p = k5t["gbs"], k5t["plan"]
@@ -2251,6 +2482,36 @@ def main() -> int:
               + sum(v["launches"]["K5"] for v in ex.values()))
     p11_k4 = sum(v["launches"]["K4"] for v in ex.values())
 
+    # phase 12: the bench table, in a process of its own
+    bt = bench_phase(torch, card)
+    print(f"phase 12: the bench table in {bt['s']:.1f} s (a fresh process; "
+          f"launches {bt['counts']}), every gate passed; K1 bit-equal to "
+          f"its twin at {len(BENCH_K1_SHAPES)} of its shapes there "
+          f"(max abs err {bt['k1_err']}); {BENCH_FULL_OUT}:")
+    for r in bt["records"]:
+        extra = {k: r[k] for k in ("ms_per_direction", "err", "gate_err",
+                                   "timed_err", "local_gbps_per_chip",
+                                   "clone_gbps", "iters", "ms_per_iter",
+                                   "gbps") if k in r}
+        print(f"[{r['device']}] {r['metric']}: {r['value']:.4f} {r['unit']}"
+              f"; peak {r['max_memory_allocated_gib']:.2f} GiB; {extra}")
+    for cell, prof in bt["profiles"].items():
+        print_profile(card, f"one {cell} c2c round trip (fresh process)",
+                      prof)
+
+    # phase 13: the sweep runner, one rank and four ranks sharing the card
+    sw = sweep_phase(torch)
+    print(f"phase 13: the sweep in {sw['s']:.1f} s, K1 and K2 launches per "
+          f"world {sw['launches']}; every one-rank and pallas_a2a row ok, "
+          f"the rest CannotRun ({OUT_DIR}/sweep_*.csv):")
+    for name in ("chip", "four_ranks"):
+        for r in sw[name]:
+            print(f"[{card}] sweep {name}: " + ",".join(
+                str(r[c]) for c in ("gdims", "pdims", "method", "dtype",
+                                    "axis_contiguous", "status",
+                                    "roundtrip_ms", "a2a_ms", "local_ms",
+                                    "timing", "error")))
+
     t120 = perm_t[(1, 2, 0)]
     ms_to_bound = 1e3 / HBM_BYTES_PER_S
     k4_flops = 2 * 27 * N ** 3
@@ -2260,20 +2521,23 @@ def main() -> int:
          "source": "cudecomp_tpu_torch/csrc/probe.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:142",
          "launches": (mp["counts"]["K0"] + sp["launches"]["K0"]
-                      + spec["launches"]["K0"] + path["K0"]),
+                      + spec["launches"]["K0"] + path["K0"]
+                      + bt["counts"]["K0"]),
          "max_abs_err": k0_err,
          "ms": k0_ms,
          "plain_ms": k0_plain,
          "bound_ms": 2 * 8 * 128 * 4 * ms_to_bound,
          "bound_by": "bytes",
+         "launch_floor_ms": k0_floor,
          "library_ms": k0_plain},
         {"name": "K1 transpose2d (cyclic local permute)",
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/transpose2d.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:299",
-         "launches": mp["launches"] + tp["k1"] + p11_k1,
+         "launches": (mp["launches"] + tp["k1"] + p11_k1
+                      + bt["counts"]["K1"] + sw["counts"]["K1"]),
          "backward_launches": gr["k1_backward"],
-         "max_abs_err": worst,
+         "max_abs_err": max(worst, bt["k1_err"]),
          "ms": t120["kernel"],
          "plain_ms": t120["plain"],
          "bound_ms": nbytes * ms_to_bound,
@@ -2283,7 +2547,7 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/stencil27.cu",
          "replaces": "cudecomp_tpu/ops/stencil.py:282",
-         "launches": sp["launches"]["K4"] + p11_k4,
+         "launches": sp["launches"]["K4"] + p11_k4 + bt["counts"]["K4"],
          "max_abs_err": k4_worst["float32"],
          "ms": st["kernel"],
          "plain_ms": st["plain"],
@@ -2308,7 +2572,8 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/peer.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:183",
-         "launches": path["K2"] + tune_counts["K2"] + k2_bwd,
+         "launches": (path["K2"] + tune_counts["K2"] + k2_bwd
+                      + sw["counts"]["K2"]),
          "backward_launches": k2_bwd,
          "max_abs_err": max(max(r["k2_err"], r["tune"]["k2_err"])
                             for r in ranks),

@@ -34,8 +34,10 @@ JAX package stays the reference and the tests hold this package to it.
   * ``compat`` holds the ``cudecomp*`` entry points of the reference C
     API; ``dryrun`` and ``examples`` drive the whole library.
 
-Ported: everything the JAX package does but the ``bench_full.py`` cell
-table.
+  * ``bench_full`` runs the JAX package's bench table on the card, and
+    ``sweep`` its configured case sweeps with CSV capture.
+
+Ported: everything the JAX package does.
 """
 
 from cudecomp_tpu_torch.config import (

@@ -93,8 +93,19 @@ def cycle(plan: DistributedFFT, x: torch.Tensor) -> torch.Tensor:
     return plan.inverse(plan.forward(x))
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a - b).abs().max())
+def max_abs_err(a: torch.Tensor, b: torch.Tensor,
+                chunk_bytes: int = 1 << 28) -> float:
+    """max |a - b|, over slabs of dim 0 of about ``chunk_bytes`` each, so
+    that no full-size difference is ever allocated (a 1024^3 c64 field is
+    8 GiB)."""
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {tuple(a.shape)} vs "
+                         f"{tuple(b.shape)}")
+    if a.dim() == 0:
+        a, b = a.reshape(1), b.reshape(1)
+    step = max(chunk_bytes // max(a[0:1].numel() * a.element_size(), 1), 1)
+    return max((float((a[i:i + step] - b[i:i + step]).abs().max())
+                for i in range(0, a.shape[0], step)), default=0.0)
 
 
 def _gate(err: float, what: str) -> None:
@@ -102,12 +113,12 @@ def _gate(err: float, what: str) -> None:
         raise RuntimeError(f"{what}: max abs err {err} is not < {GATE}")
 
 
-def main(N: int = 512, iters: int = 20, n_trials: int = 3,
-         axis_contiguous: bool = True) -> dict:
-    """Time the N^3 c2c round trip on the current GPU; returns and prints
-    the result."""
-    _need_cuda()
-    plan = make_plan(N, axis_contiguous, "cuda")
+def c2c_headline(N: int = 512, iters: int = 20, n_trials: int = 3,
+                 axis_contiguous: bool = True, device="cuda") -> dict:
+    """Time the N^3 c2c round trip on ``device`` (the GPU unless the
+    caller asks for the CPU); returns the result."""
+    _need_cuda(device)
+    plan = make_plan(N, axis_contiguous, device)
     x = make_field(plan.grid, seed=0)
     err = max_abs_err(cycle(plan, x), x)
     _gate(err, "gate round trip")
@@ -117,32 +128,56 @@ def main(N: int = 512, iters: int = 20, n_trials: int = 3,
     def timed():
         last["y"] = cycle(plan, x)
 
-    times = time_fn(timed, n_warmup=2, n_trials=n_trials, iters=iters)
+    times = time_fn(timed, n_warmup=2, n_trials=n_trials, iters=iters,
+                    device=plan.grid.device)
     timed_err = max_abs_err(last["y"], x)
     _gate(timed_err, "timed round trip")
 
     # all the work over the whole timed window; the trials show the spread
     t = sum(times) / len(times) / 2.0  # one direction
-    n_total = N ** 3
-    gflops = 5.0 * n_total * math.log2(n_total) / t / 1e9
-    payload = {
+    return {
         "metric": f"{N}^3 c2c FFT single-direction (complex64, pdims (1, 1), "
                   f"{'axis-contiguous' if axis_contiguous else 'natural'})",
-        "value": gflops,
+        "value": fft_gflops(N ** 3, t),
         "unit": "GFLOPS",
         "ms_per_direction": t * 1e3,
         "round_trip_ms_trials": [s * 1e3 for s in times],
         "gate_err": err,
         "timed_err": timed_err,
-        "device": torch.cuda.get_device_name(0),
+        "device": device_name(plan.grid.device),
     }
+
+
+def fft_gflops(n_total: int, t: float) -> float:
+    """The reference's FFT rate, 5 n log2(n) / t, with ``n`` the points of
+    the (real or complex) grid and ``t`` seconds per direction
+    (``benchmark.cu:658``)."""
+    return 5.0 * n_total * math.log2(n_total) / t / 1e9
+
+
+def main(N: int = 512, iters: int = 20, n_trials: int = 3,
+         axis_contiguous: bool = True) -> dict:
+    """Time the N^3 c2c round trip on the current GPU; returns and prints
+    the result."""
+    payload = c2c_headline(N, iters, n_trials, axis_contiguous)
     print(json.dumps(payload))
     return payload
 
 
-def _need_cuda() -> None:
-    if not torch.cuda.is_available():
+def _need_cuda(device="cuda") -> None:
+    """Raise unless ``device`` is the CPU, which only a caller that asks
+    for it gets, or CUDA is available: no headline falls back to the
+    CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the benchmark measures the GPU and needs CUDA")
+
+
+def device_name(device) -> str:
+    """The CUDA device's name, or the device type of any other."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
 
 
 def _cube_grid(N: int, device="cuda"):
@@ -165,65 +200,67 @@ def halo_bytes(grid, axis: int, halo_extents, itemsize: int) -> int:
 
 
 def stencil_headline(N: int = 512, iters: int = 20, n_trials: int = 3,
-                     dt: float = 0.1) -> dict:
+                     dt: float = 0.1, device="cuda") -> dict:
     """ms per fused diffusion step ``u + dt * lap(u)`` (periodic, f32) and
     its rate, one read plus one write of the field."""
-    _need_cuda()
-    grid = _cube_grid(N)
+    _need_cuda(device)
+    grid = _cube_grid(N, device)
     x = make_field(grid, seed=2, dtype=torch.float32)
     times = time_fn(lambda: diffusion_step(grid, x, dt, 0, (True,) * 3),
-                    n_warmup=2, n_trials=n_trials, iters=iters)
+                    n_warmup=2, n_trials=n_trials, iters=iters,
+                    device=grid.device)
     t = sum(times) / len(times)
     return {"metric": f"{N}^3 f32 fused diffusion step (ghost-plane "
                       f"stencil, pdims (1, 1))",
             "value": t * 1e3, "unit": "ms",
             "gbps": 2 * x.numel() * x.element_size() / t / 1e9,
             "trials_ms": [s * 1e3 for s in times],
-            "device": torch.cuda.get_device_name(0)}
+            "device": device_name(grid.device)}
 
 
 def halo_headline(N: int = 512, width: int = 1, iters: int = 20,
-                  n_trials: int = 3) -> dict:
+                  n_trials: int = 3, device="cuda") -> dict:
     """ms per halo update of the X-pencil with ``width`` halos on every
     dim, periodic (f32), and its rate over the slabs it moves."""
-    _need_cuda()
-    grid = _cube_grid(N)
+    _need_cuda(device)
+    grid = _cube_grid(N, device)
     he = (width, width, width)
     gen = torch.Generator(device=grid.device)
     gen.manual_seed(4)
     x = torch.randn(grid.buffer_shape(0, he), generator=gen,
                     device=grid.device)
     times = time_fn(lambda: update_halos(grid, x, 0, he, (True,) * 3),
-                    n_warmup=2, n_trials=n_trials, iters=iters)
+                    n_warmup=2, n_trials=n_trials, iters=iters,
+                    device=grid.device)
     t = sum(times) / len(times)
     return {"metric": f"{N}^3 f32 halo update (x-pencil, width {width}, "
                       f"periodic, pdims (1, 1))",
             "value": t * 1e3, "unit": "ms",
             "gbps": halo_bytes(grid, 0, he, x.element_size()) / t / 1e9,
             "trials_ms": [s * 1e3 for s in times],
-            "device": torch.cuda.get_device_name(0)}
+            "device": device_name(grid.device)}
 
 
 def cg_headline(N: int = 256, tol: float = 1e-5,
-                maxiter: int = 2000) -> dict:
+                maxiter: int = 2000, device="cuda") -> dict:
     """The CG Poisson solve of a standard-normal f32 rhs: total ms (after
     one untimed solve), iterations, ms per iteration, and the residual."""
-    _need_cuda()
-    solver = PoissonSolver(grid=_cube_grid(N))
+    _need_cuda(device)
+    solver = PoissonSolver(grid=_cube_grid(N, device))
     f = make_field(solver.grid, seed=3, dtype=torch.float32)
     last = {}
 
     def solve():
         last["out"] = solver.solve_cg(f, tol=tol, maxiter=maxiter)
 
-    (t,) = time_fn(solve, n_warmup=1, n_trials=1)
+    (t,) = time_fn(solve, n_warmup=1, n_trials=1, device=solver.grid.device)
     _, iters, rel = last["out"]
     return {"metric": f"{N}^3 f32 Poisson CG solve (K4 matvec, tol {tol:g}, "
                       f"pdims (1, 1))",
             "value": t * 1e3, "unit": "ms", "iters": int(iters),
             "rel_residual": float(rel),
             "ms_per_iter": t * 1e3 / max(int(iters), 1),
-            "device": torch.cuda.get_device_name(0)}
+            "device": device_name(solver.grid.device)}
 
 
 
@@ -371,7 +408,7 @@ def peer_rank_times(N: int = 512, width: int = 1, iters: int = 5,
 
 
 def peer_worker(rank: int, out_dir: str, kw: dict) -> None:
-    """One rank of :func:`peer_headline` (a ``card_ranks_worker`` body):
+    """One rank of :func:`peer_headline` (a ``run_card_ranks`` body):
     times :func:`peer_rank_times` and writes ``rank<r>.json`` to
     ``out_dir`` (rank 0 adds whether MPS was on)."""
     res = peer_rank_times(**kw)
@@ -725,7 +762,7 @@ def peer_sync_rank(lib_path, N: int = 512, width: int = 1,
 
 
 def peer_sync_worker(rank: int, out_dir: str, kw: dict) -> None:
-    """One rank of :func:`peer_sync` (a ``card_ranks_worker`` body)."""
+    """One rank of :func:`peer_sync` (a ``run_card_ranks`` body)."""
     res = peer_sync_rank(**kw)
     if rank == 0:
         res["mps"] = mps_active()

@@ -9,6 +9,8 @@
 // load, naming the library, and not in the middle of a path.
 //
 // 8 KiB of traffic: what bounds it is the launch itself, a few microseconds.
+// The empty kernel beside it measures that launch floor: a launch of one
+// thread that does nothing, so that K0's time can be held to it.
 //
 // The file also carries the error-string entry that every library's
 // wrapper uses to report a failed launch.
@@ -26,7 +28,16 @@ __global__ void probe_copy_kernel(const float* __restrict__ in,
   if (i < n) out[i] = in[i];
 }
 
+__global__ void probe_empty_kernel() {}
+
 }  // namespace
+
+// Launches the empty kernel (one block of one thread) on the caller's
+// stream; returns cudaGetLastError().
+extern "C" int cudecomp_probe_empty(void* stream) {
+  probe_empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
 
 // Copies n floats on the caller's stream; returns cudaGetLastError().
 extern "C" int cudecomp_probe_copy(const void* in, void* out, int64_t n,

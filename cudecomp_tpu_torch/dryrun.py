@@ -267,27 +267,12 @@ def _rank_body(rank: int, n: int, device: str, workdir: str) -> None:
         json.dump(report, fh)
 
 
-def _cpu_worker(rank: int, world: int, init_file: str, workdir: str) -> None:
-    import torch.distributed as dist
-
-    import cudecomp_tpu_torch as ct
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=world)
-    try:
-        _rank_body(rank, world, "cpu", workdir)
-        dist.barrier()
-    finally:
-        ct.clear_plan_caches()
-        dist.destroy_process_group()
-
-
 def dryrun_multichip(n: int, device="cuda", timeout: float = 600.0) -> list:
     """Spawn ``n`` ranks over gloo, run the whole pipeline on each, and
     return their reports (``{"rank", "device", "pdims", "ran",
     "refused"}``), rank by rank.  ``device="cpu"``: CPU ranks; ``"cuda"``:
     ranks that share ``cuda:0`` (``utils.testing.run_card_ranks``)."""
-    from cudecomp_tpu_torch.utils.testing import run_card_ranks, run_ranks
+    from cudecomp_tpu_torch.utils.testing import run_card_ranks, run_cpu_ranks
 
     kind = torch.device(device).type
     if kind == "cuda":
@@ -307,7 +292,8 @@ def dryrun_multichip(n: int, device="cuda", timeout: float = 600.0) -> list:
             run_card_ranks(_rank_body, n, init, (n, "cuda", d), timeout,
                            what)
         else:
-            run_ranks(_cpu_worker, n, (n, init, d), timeout, what)
+            run_cpu_ranks(_rank_body, n, init, (n, "cpu", d), timeout,
+                          what)
         reports = []
         for r in range(n):
             with open(os.path.join(d, f"rank{r}.json")) as fh:

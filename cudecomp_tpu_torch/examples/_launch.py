@@ -55,27 +55,11 @@ def _body(rank: int, module: str, a) -> None:
     importlib.import_module(module).run(a, rank)
 
 
-def _cpu_worker(rank: int, world: int, init_file: str, module: str,
-                a) -> None:
-    import torch.distributed as dist
-
-    import cudecomp_tpu_torch as ct
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=world)
-    try:
-        _body(rank, module, a)
-        dist.barrier()
-    finally:
-        ct.clear_plan_caches()
-        dist.destroy_process_group()
-
-
 def main(module: str, a, timeout: float = 900.0) -> float:
     """Run ``module.run(a, rank)`` on ``a.ranks`` ranks (in this process
     for one rank); returns the seconds it took.  ``a.workdir`` is a
     directory that every rank sees."""
-    from cudecomp_tpu_torch.utils.testing import run_card_ranks, run_ranks
+    from cudecomp_tpu_torch.utils.testing import run_card_ranks, run_cpu_ranks
     t0 = time.perf_counter()
     if a.ranks > 1 and torch.device(a.device).type == "cuda":
         from cudecomp_tpu_torch.ops import (cuda_kernels, dft2,
@@ -90,7 +74,6 @@ def main(module: str, a, timeout: float = 900.0) -> float:
             run_card_ranks(_body, a.ranks, os.path.join(d, "pg_init"),
                            (module, a), timeout, module)
         else:
-            run_ranks(_cpu_worker, a.ranks,
-                      (a.ranks, os.path.join(d, "pg_init"), module, a),
-                      timeout, module)
+            run_cpu_ranks(_body, a.ranks, os.path.join(d, "pg_init"),
+                          (module, a), timeout, module)
     return time.perf_counter() - t0

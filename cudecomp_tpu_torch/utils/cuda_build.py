@@ -46,7 +46,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-#: compiled into every library: K0 and the error-string entry
+#: compiled into every library: K0, the empty kernel that measures K0's
+#: launch floor, and the error-string entry
 PROBE_SOURCE = "probe.cu"
 PROBE_SHAPE = (8, 128)
 
@@ -56,6 +57,7 @@ probe_launch_count = 0
 _COMMON_SIGNATURES = (
     ("cudecomp_probe_copy", (ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_int64, ctypes.c_void_p), ctypes.c_int),
+    ("cudecomp_probe_empty", (ctypes.c_void_p,), ctypes.c_int),
     ("cudecomp_cuda_error_string", (ctypes.c_int,), ctypes.c_char_p),
 )
 

@@ -811,24 +811,28 @@ def check_workspace_growth(device, seed=0) -> None:
                              f"{PK.a2a_memop_count - memops0}, pad {pad})")
 
 
-def card_ranks_worker(rank: int, world: int, init_file: str, body,
-                      *args) -> None:
-    """One of ``world`` ranks that share ``cuda:0`` over a gloo world joined
-    through ``init_file``: runs ``body(rank, *args)``, then releases the
-    workspaces of the kernel exchanges (collectively), clears the plan
-    caches and leaves the world."""
+def ranks_worker(rank: int, world: int, init_file: str, device: str, body,
+                 *args) -> None:
+    """One of ``world`` ranks over a gloo world joined through
+    ``init_file``, on ``device``: ``"cpu"``, or ``"cuda"`` for ranks that
+    share ``cuda:0``.  Runs ``body(rank, *args)``; on the card then
+    releases the workspaces of the kernel exchanges (collectively); clears
+    the plan caches and leaves the world."""
     import torch.distributed as dist
 
     import cudecomp_tpu_torch as ct
     from cudecomp_tpu_torch.parallel import symmetric
 
-    torch.cuda.set_device(0)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
         body(rank, *args)
-        symmetric.release_workspaces()
+        if on_card:
+            symmetric.release_workspaces()
         dist.barrier()
     finally:
         ct.clear_plan_caches()
@@ -836,7 +840,7 @@ def card_ranks_worker(rank: int, world: int, init_file: str, body,
 
 
 def check_peer_ranks(rank: int, gdims=(10, 12, 14)) -> None:
-    """A :func:`card_ranks_worker` body: :func:`check_peer_kernels` and
+    """A :func:`run_card_ranks` body: :func:`check_peer_kernels` and
     :func:`check_workspace_growth` on ``cuda:0``."""
     check_peer_kernels(torch.device("cuda", 0), gdims)
     check_workspace_growth(torch.device("cuda", 0))
@@ -870,10 +874,18 @@ def lost_peer_rank(rank: int, init_file: str, bound_s: float) -> None:
 
 def run_card_ranks(body, world: int, init_file: str, args, timeout: float,
                    what: str) -> None:
-    """:func:`run_ranks` of ``world`` :func:`card_ranks_worker` processes
-    that run ``body(rank, *args)``; ``body`` is a module-level function."""
-    run_ranks(card_ranks_worker, world,
-              (world, init_file, body) + tuple(args), timeout, what)
+    """:func:`run_ranks` of ``world`` :func:`ranks_worker` processes that
+    share ``cuda:0`` and run ``body(rank, *args)``; ``body`` is a
+    module-level function."""
+    run_ranks(ranks_worker, world,
+              (world, init_file, "cuda", body) + tuple(args), timeout, what)
+
+
+def run_cpu_ranks(body, world: int, init_file: str, args, timeout: float,
+                  what: str) -> None:
+    """:func:`run_card_ranks` for gloo CPU ranks."""
+    run_ranks(ranks_worker, world,
+              (world, init_file, "cpu", body) + tuple(args), timeout, what)
 
 
 # -- the autotuner's protocol and the performance report on gloo ranks ----------

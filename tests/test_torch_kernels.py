@@ -297,7 +297,7 @@ def test_load_builds_with_the_probe_and_probes_once(monkeypatch):
     monkeypatch.setattr(cuda_build.ctypes, "CDLL",
                         lambda path: types.SimpleNamespace(
                             **{fn: types.SimpleNamespace() for fn in (
-                                "cudecomp_probe_copy",
+                                "cudecomp_probe_copy", "cudecomp_probe_empty",
                                 "cudecomp_cuda_error_string", "k_entry")}))
     monkeypatch.setattr(cuda_build, "probe",
                         lambda lib, name: probed.append(name))
@@ -312,6 +312,8 @@ def test_load_builds_with_the_probe_and_probes_once(monkeypatch):
     assert lib.k_entry.argtypes == [ctypes.c_void_p, ctypes.c_int64]
     assert lib.k_entry.restype is ctypes.c_int
     assert lib.cudecomp_probe_copy.restype is ctypes.c_int
+    assert lib.cudecomp_probe_empty.argtypes == [ctypes.c_void_p]
+    assert lib.cudecomp_probe_empty.restype is ctypes.c_int
 
 
 def test_every_library_carries_the_probe():
@@ -525,6 +527,15 @@ def test_gpu_probe_runs_at_load(cuda):
     assert cuda_build.probe_launch_count == before + 2
     S.build()  # a loaded library is not probed again
     assert cuda_build.probe_launch_count == before + 2
+
+
+@pytest.mark.gpu
+def test_gpu_probe_empty_kernel_launches(cuda):
+    # the empty kernel that measures K0's launch floor: every library has it
+    for lib in (K._lib(), S._lib()):
+        assert lib.cudecomp_probe_empty(
+            torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
