@@ -116,15 +116,21 @@ class TaylorGreenSolver:
         plan: DistributedFFT = f["plan"]
         with trace_range("cudecomp_tpu_torch.tg_nonlinear"):
             u = self._inverse(plan, uh)               # physical velocity
-            w = self._inverse(plan, self._curl_hat(uh, f))  # vorticity
-            nl = torch.stack([
-                u[..., 1] * w[..., 2] - u[..., 2] * w[..., 1],
-                u[..., 2] * w[..., 0] - u[..., 0] * w[..., 2],
-                u[..., 0] * w[..., 1] - u[..., 1] * w[..., 0],
-            ], dim=-1)                                # u x w
-            mask = f["mask"][..., None]
-            nh = self._t(lambda a: a * mask, self._forward(plan, nl))
-            return self._project(nh, f)
+            # each rebinding below frees the tensor it replaces
+            with trace_range("cudecomp_tpu_torch.tg_curl"):
+                w = self._curl_hat(uh, f)
+            w = self._inverse(plan, w)                # vorticity
+            with trace_range("cudecomp_tpu_torch.tg_cross"):
+                nl = torch.stack([
+                    u[..., 1] * w[..., 2] - u[..., 2] * w[..., 1],
+                    u[..., 2] * w[..., 0] - u[..., 0] * w[..., 2],
+                    u[..., 0] * w[..., 1] - u[..., 1] * w[..., 0],
+                ], dim=-1)                            # u x w
+            nh = self._forward(plan, nl)
+            with trace_range("cudecomp_tpu_torch.tg_project"):
+                mask = f["mask"][..., None]
+                nh = self._t(lambda a: a * mask, nh)
+                return self._project(nh, f)
 
     def _rhs(self, uh, f):
         """Full explicit right-hand side: nonlinear term + viscous term."""
@@ -135,31 +141,32 @@ class TaylorGreenSolver:
     def step(self, uh, f, dt):
         """One RK4 step in spectral space: IF-RK4 with
         ``integrating_factor``, else the explicit RK4 of ``tg.cu``."""
-        t = self._t
-        if not self.integrating_factor:
-            k1 = self._rhs(uh, f)
-            k2_ = self._rhs(t(lambda u, k: u + 0.5 * dt * k, uh, k1), f)
-            k3 = self._rhs(t(lambda u, k: u + 0.5 * dt * k, uh, k2_), f)
-            k4 = self._rhs(t(lambda u, k: u + dt * k, uh, k3), f)
-            return t(lambda u, a, b, c, d:
-                     u + (dt / 6.0) * (a + 2 * b + 2 * c + d),
-                     uh, k1, k2_, k3, k4)
+        with trace_range("cudecomp_tpu_torch.tg_step"):
+            t = self._t
+            if not self.integrating_factor:
+                k1 = self._rhs(uh, f)
+                k2_ = self._rhs(t(lambda u, k: u + 0.5 * dt * k, uh, k1), f)
+                k3 = self._rhs(t(lambda u, k: u + 0.5 * dt * k, uh, k2_), f)
+                k4 = self._rhs(t(lambda u, k: u + dt * k, uh, k3), f)
+                return t(lambda u, a, b, c, d:
+                         u + (dt / 6.0) * (a + 2 * b + 2 * c + d),
+                         uh, k1, k2_, k3, k4)
 
-        # IF-RK4: v = e^{nu k^2 t} u integrates dv/dt = e^{nu k^2 t} N(u);
-        # E the half-step factor, E2 = E^2 the full step, computed as
-        # exp(2x) as XLA computes the reference's E * E: squared in float32
-        # E2 rounds twice, the same way every step
-        x = -self.nu * f["k2"] * (0.5 * dt)
-        e = torch.exp(x)[..., None]
-        e2 = torch.exp(2.0 * x)[..., None]
-        n = lambda v: self._nonlinear(v, f)
-        k1 = n(uh)
-        k2_ = n(t(lambda u, k: e * (u + 0.5 * dt * k), uh, k1))
-        k3 = n(t(lambda u, k: e * u + 0.5 * dt * k, uh, k2_))
-        k4 = n(t(lambda u, k: e2 * u + dt * e * k, uh, k3))
-        return t(lambda u, a, b, c, d:
-                 e2 * u + (dt / 6.0) * (e2 * a + 2 * e * (b + c) + d),
-                 uh, k1, k2_, k3, k4)
+            # IF-RK4: v = e^{nu k^2 t} u integrates dv/dt = e^{nu k^2 t} N(u);
+            # E the half-step factor, E2 = E^2 the full step, computed as
+            # exp(2x) as XLA computes the reference's E * E: squared in float32
+            # E2 rounds twice, the same way every step
+            x = -self.nu * f["k2"] * (0.5 * dt)
+            e = torch.exp(x)[..., None]
+            e2 = torch.exp(2.0 * x)[..., None]
+            n = lambda v: self._nonlinear(v, f)
+            k1 = n(uh)
+            k2_ = n(t(lambda u, k: e * (u + 0.5 * dt * k), uh, k1))
+            k3 = n(t(lambda u, k: e * u + 0.5 * dt * k, uh, k2_))
+            k4 = n(t(lambda u, k: e2 * u + dt * e * k, uh, k3))
+            return t(lambda u, a, b, c, d:
+                     e2 * u + (dt / 6.0) * (e2 * a + 2 * e * (b + c) + d),
+                     uh, k1, k2_, k3, k4)
 
     def cfl_dt(self, uh, f, cfl: float = 0.4):
         """Advective CFL timestep ``cfl * dx / max|u_i|`` (``tg.cu:759-772``),

@@ -197,30 +197,32 @@ def _build_transpose_fn(grid, ax: int, dir_: int, in_halo, out_halo,
             return _add_halos_padding(t, out_order, out_halo,
                                       out_pad).contiguous()
 
-        # to global-axis order (dims = X, Y, Z extents of this pencil)
-        t = t.permute(in_inv + comp_axes)
-
         # ---- pack: chunk the scatter dim into per-peer blocks ----
-        tm = torch.movedim(t, scatter_dim, 0)
-        if even:
-            blocks = tm.contiguous()
-        else:
-            blocks = tm.new_zeros((P * Bs,) + tuple(tm.shape[1:]))
-            for p in range(P):
-                blocks[p * Bs:p * Bs + splits_scatter[p]] = tm[
-                    off_scatter[p]:off_scatter[p] + splits_scatter[p]]
+        with trace_range("cudecomp_tpu_torch.transpose_pack"):
+            # to global-axis order (dims = X, Y, Z extents of this pencil)
+            t = t.permute(in_inv + comp_axes)
+            tm = torch.movedim(t, scatter_dim, 0)
+            if even:
+                blocks = tm.contiguous()
+            else:
+                blocks = tm.new_zeros((P * Bs,) + tuple(tm.shape[1:]))
+                for p in range(P):
+                    blocks[p * Bs:p * Bs + splits_scatter[p]] = tm[
+                        off_scatter[p]:off_scatter[p] + splits_scatter[p]]
         # ---- exchange over the mesh dim ----
         recv = exchange(blocks, grid.group(comm_name), P, Bs)
         # ---- unpack: reassemble the gather dim ----
-        if even:
-            out_m = _concat_gather_even(recv, P, Bs, Bg, gpos)
-        else:
-            out_m = torch.cat(
-                [recv[q * Bs:(q + 1) * Bs].narrow(gpos, 0, splits_gather[q])
-                 for q in range(P)], dim=gpos)
-        out_t = torch.movedim(out_m, 0, scatter_dim)
-        out_t = out_t.permute(out_order + comp_axes).contiguous()
-        return _add_halos_padding(out_t, out_order, out_halo, out_pad)
+        with trace_range("cudecomp_tpu_torch.transpose_unpack"):
+            if even:
+                out_m = _concat_gather_even(recv, P, Bs, Bg, gpos)
+            else:
+                out_m = torch.cat(
+                    [recv[q * Bs:(q + 1) * Bs].narrow(gpos, 0,
+                                                      splits_gather[q])
+                     for q in range(P)], dim=gpos)
+            out_t = torch.movedim(out_m, 0, scatter_dim)
+            out_t = out_t.permute(out_order + comp_axes).contiguous()
+            return _add_halos_padding(out_t, out_order, out_halo, out_pad)
 
     return local_fn
 

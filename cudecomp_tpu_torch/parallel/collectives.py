@@ -121,18 +121,19 @@ def _ppermute(x: torch.Tensor, group, pairs) -> torch.Tensor:
     recv = torch.zeros_like(send)
     wire_send = torch.view_as_real(send) if send.is_complex() else send
     wire_recv = torch.view_as_real(recv) if recv.is_complex() else recv
-    ops = []
+    ops, sent = [], 0
     for src, dst in pairs:
         if src == me and dst == me:
             recv.copy_(send)
         elif src == me:
+            sent = send.nbytes
             ops.append(dist.P2POp(dist.isend, wire_send,
                                   dist.get_global_rank(group, dst), group))
         elif dst == me:
             ops.append(dist.P2POp(dist.irecv, wire_recv,
                                   dist.get_global_rank(group, src), group))
     if ops:
-        with trace_range(EXCHANGE_PREFIX + "ppermute"):
+        with trace_range(EXCHANGE_PREFIX + "ppermute", bytes=sent):
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
     return recv
@@ -194,6 +195,12 @@ def _check_blocks(blocks: torch.Tensor, n: int, block: int) -> None:
                          f"{n} peers x {block}")
 
 
+def _sent_bytes(blocks: torch.Tensor, n: int) -> int:
+    """What an exchange of ``blocks`` among ``n`` ranks sends to other
+    ranks: every block but this rank's own, (n - 1) / n of the buffer."""
+    return blocks.nbytes * (n - 1) // n
+
+
 def exchange_all_to_all(blocks: torch.Tensor, group, n: int,
                         block: int) -> torch.Tensor:
     """One-shot all-to-all: block p -> peer p, received stacked by peer.
@@ -206,7 +213,8 @@ def _all_to_all(blocks: torch.Tensor, group) -> torch.Tensor:
     _refuse_cuda_over_gloo(blocks, group, "all_to_all")
     blocks = blocks.contiguous()
     out = torch.empty_like(blocks)
-    with trace_range(EXCHANGE_PREFIX + "all_to_all"):
+    with trace_range(EXCHANGE_PREFIX + "all_to_all",
+                     bytes=_sent_bytes(blocks, dist.get_world_size(group))):
         if blocks.is_complex():
             dist.all_to_all_single(torch.view_as_real(out),
                                    torch.view_as_real(blocks), group=group)
@@ -331,7 +339,8 @@ def exchange_pallas_a2a(blocks: torch.Tensor, group, n: int,
         return blocks
     if blocks.device.type == "cpu":
         return exchange_all_to_all(blocks, group, n, block)
-    with trace_range(EXCHANGE_PREFIX + "pallas_a2a"):
+    with trace_range(EXCHANGE_PREFIX + "pallas_a2a",
+                     bytes=_sent_bytes(blocks, n)):
         return _self_adjoint(partial(peer_kernels.a2a, group=group), blocks)
 
 

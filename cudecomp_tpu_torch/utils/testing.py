@@ -1258,11 +1258,51 @@ def _check_autotune_fft(rank: int) -> None:
         F.DistributedFFT.forward_planes = planes
 
 
+def _check_spans(rank: int) -> None:
+    """On the CPU ranks of a gloo world of 4: a (1, 4) slab transpose,
+    even and uneven, records its pack, its exchange and its unpack as
+    spans under the transpose's own, the exchange with the bytes this
+    rank sends to the others ((P - 1) / P of the block buffer); with the
+    profiler off it records nothing and makes no CUDA event."""
+    from torch.profiler import profile
+
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch.utils import tracing
+
+    P = "cudecomp_tpu_torch."
+    for gdims in ((8, 12, 16), (8, 12, 18)):
+        grid = ct.make_grid(ct.GridConfig(gdims=gdims, pdims=(1, 4)), "cpu")
+        y = torch.zeros(grid.buffer_shape(1), dtype=torch.complex64)
+        tracing.clear_spans()
+        with profile():
+            ct.transpose_y_to_z(grid, y)
+        spans = tracing.spans()
+        names = [s.name for s in spans]
+        _ok(names == [P + "transpose_y_to_z", P + "transpose_pack",
+                      P + "exchange.all_to_all", P + "transpose_unpack"],
+            (gdims, names))
+        _ok([s.parent for s in spans] == [None, 0, 0, 0], spans)
+        want = y.numel() * y.element_size() * 3 // 4
+        _ok(spans[2].counts == {"bytes": want}, (spans[2].counts, want))
+        _ok(all(s.host_start_ns <= s.host_end_ns for s in spans), spans)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA event with the profiler off")
+
+    event, torch.cuda.Event = torch.cuda.Event, refuse
+    try:
+        tracing.clear_spans()
+        ct.transpose_y_to_z(grid, y)
+        _ok(tracing.spans() == [] and tracing.dropped_spans() == 0)
+    finally:
+        torch.cuda.Event = event
+
+
 def protocol_worker(rank: int, world: int, init_file: str,
                     checks) -> None:
     """One CPU rank of a gloo world (``file://`` init): runs each named
-    check of ``_check_autotune_protocol``, ``_check_performance`` and
-    ``_check_autotune_fft``."""
+    check of ``_check_autotune_protocol``, ``_check_performance``,
+    ``_check_autotune_fft`` and ``_check_spans``."""
     import torch.distributed as dist
 
     import cudecomp_tpu_torch as ct
@@ -1274,7 +1314,8 @@ def protocol_worker(rank: int, world: int, init_file: str,
         for name in checks:
             {"autotune": _check_autotune_protocol,
              "performance": _check_performance,
-             "autotune_fft": _check_autotune_fft}[name](rank)
+             "autotune_fft": _check_autotune_fft,
+             "spans": _check_spans}[name](rank)
         dist.barrier()
     finally:
         ct.clear_plan_caches()
