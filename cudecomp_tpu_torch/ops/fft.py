@@ -28,15 +28,23 @@ Layouts: ``split_complex=False`` takes and returns complex tensors;
 ``split_complex=True`` takes and returns float tensors with a trailing dim
 of 2 (re, im), which is exactly ``torch.view_as_real`` of the complex
 tensor, so no copy is made either way; the plane forms take and return
-``(r, i)`` tuples.  Normalization follows ``torch.fft``'s default
-(``norm="backward"``: the inverse scales by 1/N), as the JAX package does.
-Every form is differentiable (``torch.fft``, K5's and K1's Functions and
-the exchanges' own).
+``(r, i)`` tuples.  Normalization is ``torch.fft``'s default
+(``norm="backward"``: the inverse scales by 1/N), as the JAX package does,
+but the inverse applies it once: every inverse stage runs unnormalised
+(``norm="forward"``) and one in-place multiply of the last stage's output,
+a new tensor from ``torch.fft`` or K5, carries the whole 1/N, under the
+``fft_scale`` range, whose ``stages`` count says how many ``torch.fft``
+calls it stands for.  A K5 stage keeps its own 1/(N1*N2), folded into its
+weights at no cost, and the one pass carries the rest (there is none where
+K5's factor is the whole 1/N).  Every form is differentiable
+(``torch.fft``, K5's and K1's Functions and the exchanges' own; no
+backward saves the output the pass scales).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -156,17 +164,23 @@ class DistributedFFT:
         return fft_fused2() if self.fused2 is None else bool(self.fused2)
 
     def _fftn(self, x, dims, inverse):
-        """FFT over ``dims``.  A plan that takes K5 (:meth:`_takes_k5`)
-        runs dims (1, 2) of a 3D stage through K5 first when
-        :func:`~cudecomp_tpu_torch.ops.dft2.dft2_fits` holds, then the
-        remaining dims, as JAX's ``fft_planes`` does
-        (``mxu_fft.py:488-492``)."""
+        """FFT over ``dims``: ``(y, k5_points, calls)``.  A plan that takes
+        K5 (:meth:`_takes_k5`) runs dims (1, 2) of a 3D stage through K5
+        first when :func:`~cudecomp_tpu_torch.ops.dft2.dft2_fits` holds,
+        then the remaining dims, as JAX's ``fft_planes`` does
+        (``mxu_fft.py:488-492``).  An inverse is unnormalised but for K5's
+        own 1/(N1*N2): ``k5_points`` is that N1*N2 (1 where K5 did not
+        run) and ``calls`` the ``torch.fft`` calls made (0 or 1)."""
+        k5 = 1
         if {1, 2} <= set(dims) and self._takes_k5() and dft2_fits(x):
             x = dft2(x.contiguous(), inverse)
+            k5 = x.shape[1] * x.shape[2]
             dims = tuple(d for d in dims if d not in (1, 2))
             if not dims:
-                return x
-        return (torch.fft.ifftn if inverse else torch.fft.fftn)(x, dim=dims)
+                return x, k5, 0
+        if inverse:
+            return torch.fft.ifftn(x, dim=dims, norm="forward"), k5, 1
+        return torch.fft.fftn(x, dim=dims), k5, 1
 
     def _forward_complex(self, x):
         cgrid = self.complex_grid
@@ -176,7 +190,7 @@ class DistributedFFT:
                 if self.real and first_fft:
                     x = self._rfft_stage(cgrid, x, rest[0])
                 else:
-                    x = self._fftn(x, _fft_axes(cgrid, a, rest[0]), False)
+                    x = self._fftn(x, _fft_axes(cgrid, a, rest[0]), False)[0]
                 first_fft = False
             else:
                 op = tr.transpose_x_to_y if a == 0 else tr.transpose_y_to_z
@@ -184,20 +198,31 @@ class DistributedFFT:
         return x
 
     def _inverse_complex(self, xh, owned: bool):
-        """``owned``: whether ``xh`` may be written (c2r zeroes two bins)."""
+        """``owned``: whether ``xh`` may be written (c2r zeroes two bins).
+        The stages run unnormalised; the 1/N they leave, N the real grid's
+        points less those K5 scaled itself, is one in-place multiply of
+        the last stage's output.  That output is always a new tensor (the
+        inverse ends with an FFT stage), so ``xh`` is never scaled."""
         cgrid = self.complex_grid
         x = xh
+        n, calls = math.prod(self.grid.config.gdims), 0
         rev = list(reversed(self._stages()))
         last_fft_idx = max(i for i, s in enumerate(rev) if s[0] == "fft")
         for i, (kind, a, *rest) in enumerate(rev):
             if kind == "fft":
                 if self.real and i == last_fft_idx:
-                    return self._irfft_stage(cgrid, x, rest[0],
-                                             owned or i > 0)
-                x = self._fftn(x, _fft_axes(cgrid, a, rest[0]), True)
+                    x, k5, c = self._irfft_stage(cgrid, x, rest[0],
+                                                 owned or i > 0)
+                else:
+                    x, k5, c = self._fftn(x, _fft_axes(cgrid, a, rest[0]),
+                                          True)
+                n, calls = n // k5, calls + c
             else:
                 op = tr.transpose_y_to_x if a == 0 else tr.transpose_z_to_y
                 x = op(cgrid, x)
+        if n > 1:
+            with trace_range("cudecomp_tpu_torch.fft_scale", stages=calls):
+                x.mul_(1.0 / n)
         return x
 
     def _rfft_stage(self, cgrid, x, global_axes):
@@ -207,20 +232,23 @@ class DistributedFFT:
         xh = torch.fft.rfft(x, dim=x_dim)
         other = [a for a in global_axes if a != 0]
         if other:
-            xh = self._fftn(xh, _fft_axes(cgrid, 0, other), False)
+            xh = self._fftn(xh, _fft_axes(cgrid, 0, other), False)[0]
         return xh
 
     def _irfft_stage(self, cgrid, xh, global_axes, owned):
-        """Last inverse stage for C2R: inverse of :meth:`_rfft_stage`."""
+        """Last inverse stage for C2R, unnormalised: the inverse of
+        :meth:`_rfft_stage`, returned as :meth:`_fftn` returns."""
+        k5, calls = 1, 0
         other = [a for a in global_axes if a != 0]
         if other:
-            xh = self._fftn(xh, _fft_axes(cgrid, 0, other), True)
+            xh, k5, calls = self._fftn(xh, _fft_axes(cgrid, 0, other), True)
         elif not owned:
             xh = xh.clone()
         x_dim = self.grid.config.inv_mem_order(0)[0]
         n = self.grid.config.gdims[0]
         _zero_dc_nyquist_imag_(xh, x_dim, n)
-        return torch.fft.irfft(xh, n=n, dim=x_dim)
+        return (torch.fft.irfft(xh, n=n, dim=x_dim, norm="forward"), k5,
+                calls + 1)
 
     # -- public forms ------------------------------------------------------------
 

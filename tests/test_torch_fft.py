@@ -20,12 +20,14 @@ from cudecomp_tpu.ops.fft import complex_grid_config as j_complex_cfg
 import cudecomp_tpu_torch as ct
 from cudecomp_tpu_torch.ops.fft import DistributedFFT as TFFT
 from cudecomp_tpu_torch.ops.fft import complex_grid_config, plan_stages
+from cudecomp_tpu_torch.utils import tracing
 
 LAYOUTS = {
     "natural": {},
     "axis_contiguous": dict(transpose_axis_contiguous=(True, True, True)),
     "mem_order": dict(transpose_mem_order=((2, 1, 0), (0, 2, 1), (1, 2, 0))),
 }
+P = tracing.PREFIX
 
 
 def twin_grids(gdims, **kw):
@@ -215,3 +217,93 @@ def test_fft3d_one_shot():
     torch.testing.assert_close(ct.ifft3d(tgrid, xh), tx, atol=1e-12, rtol=0)
     np.testing.assert_allclose(ct.gather_global(tgrid, xh, 2).numpy(),
                                np.fft.fftn(x), atol=1e-10, rtol=0)
+
+
+# -- the inverse's one 1/N pass --------------------------------------------------
+
+def _inverse_under_profiler(plan, xh, planes):
+    """Run ``plan``'s inverse of ``xh`` with the profiler on: the output,
+    the spans and the ``torch.fft`` ops run under ``fft3d_inverse``."""
+    tracing.clear_spans()
+    with torch.profiler.profile() as prof:
+        out = plan.inverse_planes(xh) if planes else plan.inverse(xh)
+    spans = tracing.spans()
+    tracing.clear_spans()
+    ffts = 0
+    for e in prof.events():
+        up, p = [], e.cpu_parent
+        while p is not None:
+            up.append(p.name)
+            p = p.cpu_parent
+        if (e.name.startswith("aten::_fft_")
+                and tracing.PREFIX + "fft3d_inverse" in up):
+            ffts += 1
+    return out, spans, ffts
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("form", ["complex", "split", "planes"])
+@pytest.mark.parametrize("kind", ["c2c", "r2c"])
+def test_inverse_scales_once_under_one_span(kind, form, layout):
+    gdims = (8, 6, 10)
+    _, tgrid = twin_grids(gdims, **LAYOUTS[layout])
+    plan = TFFT(grid=tgrid, real=kind == "r2c",
+                split_complex=form != "complex")
+    x = inputs(kind, form, gdims, np.float64)
+    if isinstance(x, tuple):
+        tx = tuple(ct.scatter_global(tgrid, v, 0) for v in x)
+    elif x.ndim == 4:
+        tx = torch.stack([ct.scatter_global(tgrid, x[..., j], 0)
+                          for j in (0, 1)], -1)
+    else:
+        tx = ct.scatter_global(tgrid, x, 0)
+    planes = form == "planes"
+    xh = plan.forward_planes(tx) if planes else plan.forward(tx)
+    back, spans, ffts = _inverse_under_profiler(plan, xh, planes)
+
+    roots = [i for i, s in enumerate(spans) if s.parent is None]
+    assert [spans[i].name for i in roots] == [P + "fft3d_inverse"]
+    scales = [s for s in spans if s.name == P + "fft_scale"]
+    assert len(scales) == 1 and scales[0].parent == roots[0]
+    # one torch.fft call a stage, and the r2c's fused stage two (ifftn
+    # then irfft): three stages but where the layout fuses them
+    n_stages = sum(1 for s in plan_stages(plan.complex_grid.config)
+                   if s[0] == "fft")
+    want = n_stages + (kind == "r2c" and layout == "natural")
+    assert scales[0].counts == {"stages": want} and ffts == want
+    for g, w in (zip(back, tx) if planes else [(back, tx)]):
+        torch.testing.assert_close(g, w, atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_complex_inverse_leaves_input_alone(layout):
+    _, tgrid = twin_grids((8, 6, 10), **LAYOUTS[layout])
+    plan = TFFT(grid=tgrid)
+    x = ct.scatter_global(tgrid, inputs("c2c", "complex", (8, 6, 10),
+                                        np.float64), 0)
+    xh = plan.forward(x)
+    keep = xh.clone()
+    back = plan.inverse(xh)
+    assert torch.equal(xh, keep)
+    torch.testing.assert_close(back, x, atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("gdims,passes", [((4, 8, 128), 1),
+                                          ((1, 8, 128), 0)])
+def test_k5_keeps_its_own_factor(gdims, passes):
+    # K5 (its plain version on the CPU) scales its (1, 2) pair by
+    # 1/(N1*N2) itself; the one pass carries the rest, and is left out
+    # where K5's factor is the whole 1/N
+    _, tgrid = twin_grids(gdims)
+    x = torch.from_numpy(inputs("c2c", "split", gdims, np.float32))
+    outs = {}
+    for fused2 in (False, True):
+        plan = TFFT(grid=tgrid, split_complex=True, fused2=fused2)
+        xh = plan.forward(x)
+        back, spans, ffts = _inverse_under_profiler(plan, xh, False)
+        scales = [s.counts for s in spans if s.name == P + "fft_scale"]
+        assert scales == ([{"stages": 1}] if passes or not fused2 else [])
+        assert ffts == 1
+        torch.testing.assert_close(back, x, atol=1e-5, rtol=0)
+        outs[fused2] = back
+    torch.testing.assert_close(outs[True], outs[False], atol=1e-5, rtol=0)

@@ -311,6 +311,25 @@ def test_fused2_plan_gradients_match_cufft_path():
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-10)
 
 
+
+@pytest.mark.parametrize("split_complex", [False, True])
+@pytest.mark.parametrize("real,layout", [(False, "axis_contiguous"),
+                                         (True, "natural"),
+                                         (True, "axis_contiguous")])
+def test_inverse_gradcheck(real, layout, split_complex):
+    # the inverse's unnormalised stages and its one in-place 1/N pass
+    # against finite differences, in float64
+    grid = ct.make_grid(ct.GridConfig(gdims=(6, 4, 5), pdims=(1, 1),
+                                      **_LAYOUTS[layout]), "cpu")
+    plan = TFFT(grid=grid, real=real, split_complex=split_complex)
+    gen = torch.Generator().manual_seed(5)
+    xh = torch.randn(plan.complex_grid.buffer_shape(2), generator=gen,
+                     dtype=torch.complex128)
+    if split_complex:
+        xh = torch.view_as_real(xh).clone()
+    assert torch.autograd.gradcheck(plan.inverse,
+                                    (xh.requires_grad_(True),))
+
 # -- the kernels' autograd Functions ----------------------------------------------
 
 @pytest.mark.parametrize("perm", K.CYCLIC_PERMS)
