@@ -19,6 +19,13 @@ CUDA tensor launches K4 exactly once (a tensor ``dt`` adds an
 elementwise axpy pass), and its backward once more.  :func:`halo_map` is
 the width-generic escape hatch for user stencils.
 
+Two spans time each pass from inside the public op's span:
+``stencil_ghosts`` around the ghost exchange or extension (count
+``bytes``: the ghost cells made or moved, 0 where every dim wraps inside
+K4) and ``stencil_pass`` around the K4 launch (counts ``bytes``: the
+block, ghost planes and output it reads and writes; ``points``: the
+output cells).
+
 Tap offsets index the BUFFER's memory dims, while ``halo_periods`` is
 indexed by GLOBAL dims, as in the JAX package.  Sharded extents must
 divide evenly (``update_halos`` serves uneven grids).
@@ -26,6 +33,7 @@ divide evenly (``update_halos`` serves uneven grids).
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import Tuple
 
@@ -216,15 +224,28 @@ def _stencil_apply_impl(grid, u, w, axis, periods):
     periods_mem = _periods_mem(grid, axis, periods)
     wrap = tuple(shard[d][1] == 1 and periods_mem[d] for d in range(3))
     u = u.contiguous()
+    item, cells = u.element_size(), u.numel()
     if all(_tap_ok(off, wrap) for off, _ in K.taps(w)):
-        ghosts = _exchange_ghosts(u, shard, periods_mem, grid.mesh)
-        planes = tuple(None if wrap[d]
-                       else tuple(p.contiguous() for p in ghosts[d])
-                       for d in range(3))
-        return K.stencil27(u, w, planes)
+        # the planes of each dim that does not wrap inside K4
+        ghost_bytes = item * sum(2 * cells // u.shape[d] for d in range(3)
+                                 if not wrap[d])
+        with trace_range("cudecomp_tpu_torch.stencil_ghosts",
+                         bytes=ghost_bytes):
+            ghosts = _exchange_ghosts(u, shard, periods_mem, grid.mesh)
+            planes = tuple(None if wrap[d]
+                           else tuple(p.contiguous() for p in ghosts[d])
+                           for d in range(3))
+        with trace_range("cudecomp_tpu_torch.stencil_pass",
+                         bytes=2 * item * cells + ghost_bytes, points=cells):
+            return K.stencil27(u, w, planes)
     # corner taps across a ghost y/z dim: the ghost-extended block
-    ue = _ghost_extend(u, (1, 1, 1), shard, periods_mem, grid.mesh)
-    return K.stencil27(ue, w)
+    ext_cells = math.prod(n + 2 for n in u.shape)
+    with trace_range("cudecomp_tpu_torch.stencil_ghosts",
+                     bytes=item * (ext_cells - cells)):
+        ue = _ghost_extend(u, (1, 1, 1), shard, periods_mem, grid.mesh)
+    with trace_range("cudecomp_tpu_torch.stencil_pass",
+                     bytes=item * (ext_cells + cells), points=cells):
+        return K.stencil27(ue, w)
 
 
 class _StencilApply(torch.autograd.Function):
