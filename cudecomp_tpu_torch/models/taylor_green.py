@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from cudecomp_tpu_torch.grid import GridDescriptor
+from cudecomp_tpu_torch.ops.cross import cross
 from cudecomp_tpu_torch.ops.fft import DistributedFFT
 from cudecomp_tpu_torch.ops.spectral import SpectralOperators
 from cudecomp_tpu_torch.parallel.collectives import all_reduce_grid
@@ -121,11 +122,7 @@ class TaylorGreenSolver:
                 w = self._curl_hat(uh, f)
             w = self._inverse(plan, w)                # vorticity
             with trace_range("cudecomp_tpu_torch.tg_cross"):
-                nl = torch.stack([
-                    u[..., 1] * w[..., 2] - u[..., 2] * w[..., 1],
-                    u[..., 2] * w[..., 0] - u[..., 0] * w[..., 2],
-                    u[..., 0] * w[..., 1] - u[..., 1] * w[..., 0],
-                ], dim=-1)                            # u x w
+                nl = cross(u, w)                      # u x w, one pass
             nh = self._forward(plan, nl)
             with trace_range("cudecomp_tpu_torch.tg_project"):
                 mask = f["mask"][..., None]
