@@ -6,11 +6,10 @@ that the port builds, is right and starts on the card.
 
 Phases, each of which raises on failure (nothing is caught):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the K1 local-permute, K4 stencil, K5 fused 2-axis DFT and C1
-     cross-product libraries and the one library of the K2 one-sided
-     all-to-all and the K3 one-sided halo ring from the checkout's
-     sources, in parallel; K0, the probe, runs once as each library
-     loads;
+  2. build the K1 local-permute, K4 stencil, K5 fused 2-axis DFT
+     libraries and the one library of the K2 one-sided all-to-all and the
+     K3 one-sided halo ring from the checkout's sources, in parallel; K0,
+     the probe, runs once as each library loads;
   3. K1 against its plain twin, bit for bit: bf16/f32/f64/c64/c128, both
      cyclic perms, ragged and degenerate shapes, and the 512^3 c64 shapes
      of the FFT path;
@@ -36,11 +35,7 @@ Phases, each of which raises on failure (nothing is caught):
      spectrum is held to torch.fft.fftn of the same global field (relative
      L2 error <= 1e-5), the round trip to max abs error < 5e-4, and the
      round trip must launch K1 exactly 4 times; an r2c round trip at 512^3
-     must pass the same 5e-4 gate; C1, Taylor-Green's cross product, on
-     two 512^3 f32 fields as the r2c plan's inverse lays them out (x
-     innermost, a plane per component): one launch, bit-equal to its
-     plain twin (the component formula and stack) and in the stack's
-     layout;
+     must pass the same 5e-4 gate;
   6. the halo and stencil path at 512^3 float32, pdims (1, 1), through the
      public entry points: update_halos (width 1, periodic) bit-equal to a
      plain wrapped-index buffer; diffusion_step, the dense 27-tap
@@ -59,18 +54,14 @@ Phases, each of which raises on failure (nothing is caught):
      (within 1e-5 of R(z)^n u0, max|div_h u| <= 1e-4 max|u|, 8 K5 launches
      per step); the Taylor-Green solver at Re 1600, IF-RK4, dt 2e-3, 250
      steps to t = 0.5, energy and dissipation at t = 0.1 ... 0.5 within
-     1e-4 of docs/tg_validation_n256.csv (the JAX package's f32 curve),
-     4 C1 launches per step;
+     1e-4 of docs/tg_validation_n256.csv (the JAX package's f32 curve);
   8. timing: the FFT round trip (ms per direction, GFLOPS), K1's bandwidth
      beside clone() and its plain twin; the diffusion step, K4 for the 7-tap
      and the dense 27-tap set in wrap mode beside its bound, clone(), the
      conv3d yardstick and its plain version, with the instance that ran
      and its registers and spills, the halo update and the CG iteration;
      K5 at (129, 256, 256) beside its bound, dft2_ref, cuFFT and clone()
-     of the same bytes (GB/s), with the cluster size it launches; C1 on
-     phase 5's fields beside its bound, its plain twin and
-     torch.linalg.cross into the stack's layout and into the inverse's
-     planes; K0
+     of the same bytes (GB/s), with the cluster size it launches; K0
      beside clone() and its launch floor (an empty kernel's launch); the
      Poisson solve with K5 on and off, the Taylor-Green step
      and the projection-solver step; torch.profiler breakdowns by kernel, with
@@ -479,91 +470,16 @@ def profiles_worker(rank, out_path):
 def reset_counts(K, S, D, cb):
     """Every launch count to 0, and the loaded libraries dropped, so the
     next path loads them (and runs K0) as a fresh process does."""
-    from cudecomp_tpu_torch.ops import cross as C
     K.reset_launch_count()
     S.reset_launch_count()
     D.reset_launch_count()
-    C.reset_launch_count()
     cb.reset_probe_count()
     cb.load.cache_clear()
 
 
 def counts(K, S, D, cb):
-    from cudecomp_tpu_torch.ops import cross as C
     return {"K0": cb.probe_launch_count, "K1": K.launch_count,
-            "K4": S.launch_count, "K5": D.launch_count,
-            "C1": C.launch_count}
-
-
-# -- C1: Taylor-Green's cross product ---------------------------------------------
-
-def cross_fields(torch, ct, gen):
-    """Two N^3 f32 fields ``(u, w)`` as Taylor-Green's r2c plan's inverse
-    hands them to the cross product: x innermost, a plane per component."""
-    from cudecomp_tpu_torch.ops.fft import DistributedFFT
-    grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(1, 1)), DEVICE)
-    plan = DistributedFFT(grid=grid, real=True)
-    out = []
-    for _ in range(2):
-        x = torch.randn((N, N, N, 3), generator=gen, device=DEVICE)
-        out.append(plan.inverse(plan.forward(x)))
-        del x
-    return out
-
-
-def cross_path(torch, ct, K, S, D, cb, gen):
-    """Phase 5, C1: one launch on :func:`cross_fields`, bit-equal to its
-    plain twin and in the layout ``torch.stack(..., dim=-1)`` gives."""
-    from cudecomp_tpu_torch.ops import cross as C
-    u, w = cross_fields(torch, ct, gen)
-    reset_counts(K, S, D, cb)
-    got = C.cross(u, w)
-    torch.cuda.synchronize()
-    launched = counts(K, S, D, cb)
-    ref = C.cross_ref(u, w)
-    if launched["C1"] != 1 or launched["K0"] != 1:
-        raise AssertionError(f"the cross product launched C1 "
-                             f"{launched['C1']} times and K0 "
-                             f"{launched['K0']} times, expected 1 and 1")
-    if got.stride() != ref.stride() or not torch.equal(got, ref):
-        raise AssertionError(f"C1 differs from its twin at {tuple(u.shape)} "
-                             f"f32: strides {got.stride()} against "
-                             f"{ref.stride()}, max abs diff "
-                             f"{float((got - ref).abs().max())}")
-    return {"counts": launched, "in_strides": u.stride(),
-            "out_strides": got.stride(),
-            "max_abs_err": float((got - ref).abs().max())}
-
-
-def cross_timing(torch, ct, perf, gen):
-    """Phase 8, C1 on :func:`cross_fields`: ms per call (means over
-    trials) of the kernel, its plain twin, ``torch.linalg.cross`` into
-    the stack's layout and into the inverse's planes, and ``clone()`` of
-    one field; the bound is one read of u and w and one write."""
-    from cudecomp_tpu_torch.ops import cross as C
-    u, w = cross_fields(torch, ct, gen)
-    stacked = torch.empty(u.shape, dtype=u.dtype, device=u.device)
-    planes = torch.empty_like(u)   # u's strides
-
-    def t(fn):
-        return mean(perf.time_fn(fn, n_warmup=2, n_trials=5,
-                                 iters=10)) * 1e3
-
-    # plain, kernel, kernel, plain: drift shows as disagreeing pairs
-    runs = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = C.cross_ref if name == "plain" else C.cross
-        runs[name].append(t(lambda: fn(u, w)))
-    out = {k: mean(v) for k, v in runs.items()}
-    out["runs_ms"] = runs
-    out["library_ms"] = t(lambda: torch.linalg.cross(u, w, dim=-1,
-                                                     out=stacked))
-    out["library_planes_ms"] = t(lambda: torch.linalg.cross(u, w, dim=-1,
-                                                            out=planes))
-    out["clone_ms"] = t(u.clone)
-    out["nbytes"] = 3 * u.numel() * u.element_size()
-    out["bound_ms"] = out["nbytes"] / HBM_BYTES_PER_S * 1e3
-    return out
+            "K4": S.launch_count, "K5": D.launch_count}
 
 
 # -- K4 --------------------------------------------------------------------------
@@ -889,7 +805,6 @@ def spectral_path(torch, ct, bench, K, S, D, cb):
     """Phase 7: the spectral path at 256^3 f32 through the public entry
     points; returns the checks' numbers and the path's launch counts."""
     from cudecomp_tpu_torch.models.incompressible import rk_stability
-    from cudecomp_tpu_torch.ops import cross as C
     grid = ct.make_grid(ct.GridConfig(gdims=(NS,) * 3, pdims=(1, 1)), DEVICE)
     h = 2 * math.pi / NS
     xs = torch.arange(NS, device=DEVICE, dtype=torch.float64) * h
@@ -954,7 +869,6 @@ def spectral_path(torch, ct, bench, K, S, D, cb):
     uh, ftg = tg.setup(torch.float32)
     ref = tg_reference()
     devs = {}
-    c0 = C.launch_count
     t0 = time.perf_counter()
     for i in range(TG_STEPS + 1):
         if i % 50 == 0:
@@ -966,7 +880,6 @@ def spectral_path(torch, ct, bench, K, S, D, cb):
             uh = tg.step(uh, ftg, TG_DT)
     torch.cuda.synchronize()
     res["tg_s"] = time.perf_counter() - t0
-    res["tg_c1"] = C.launch_count - c0
     res["tg_devs"] = devs
     res["tg_worst"] = max(max(v) for v in devs.values())
     if not all(uh_p.dtype == torch.float32 for uh_p in uh):
@@ -974,9 +887,6 @@ def spectral_path(torch, ct, bench, K, S, D, cb):
     if not res["tg_worst"] <= TG_RTOL:
         raise AssertionError(f"Taylor-Green {NS}^3 Re 1600: relative "
                              f"deviation from the committed curve {devs}")
-    if res["tg_c1"] != 4 * TG_STEPS:
-        raise AssertionError(f"{TG_STEPS} Taylor-Green steps launched C1 "
-                             f"{res['tg_c1']} times, expected 4 a step")
     torch.cuda.synchronize()
     res["launches"] = counts(K, S, D, cb)
     return res
@@ -1992,14 +1902,12 @@ def examples_phase(torch, K, S, D, cb):
     """Each of the six examples on the card at its default size, P = 1,
     between a reset and a read of the counts; its seconds."""
     import importlib
-    from cudecomp_tpu_torch.ops import cross as C
     out = {}
     for name in EXAMPLES:
         mod = importlib.import_module(f"cudecomp_tpu_torch.examples.{name}")
         K.reset_launch_count()
         S.reset_launch_count()
         D.reset_launch_count()
-        C.reset_launch_count()
         cb.reset_probe_count()
         secs = mod.main(["--device", DEVICE])
         torch.cuda.synchronize()
@@ -2231,7 +2139,6 @@ def main() -> int:
         return 1
     import cudecomp_tpu_torch as ct
     from cudecomp_tpu_torch import bench, performance as perf
-    from cudecomp_tpu_torch.ops import cross as C
     from cudecomp_tpu_torch.ops import cuda_kernels as K
     from cudecomp_tpu_torch.ops import dft2 as D
     from cudecomp_tpu_torch.ops import peer_kernels as PK
@@ -2248,18 +2155,16 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
 
-    # phase 2: build K1, K4, K5, C1 and the library of K2 and K3 side by
-    # side; K0 probes each at load
+    # phase 2: build K1, K4, K5 and the library of K2 and K3 side by side;
+    # K0 probes each at load
     torch.cuda.init()
     t0 = time.perf_counter()
-    builds = (K.build, S.build, D.build, C.build, PK.build)
-    with ThreadPoolExecutor(len(builds) + 2) as pool:
+    builds = (K.build, S.build, D.build, PK.build)
+    with ThreadPoolExecutor(len(builds) + 1) as pool:
         ptxas = pool.submit(cb.ptxas_report, S.SOURCES)
-        c1_ptxas = pool.submit(cb.ptxas_report, C.SOURCES)
         libs = list(pool.map(lambda build: build(), builds))
         k4_ptxas = ptxas.result()
-        c1_ptxas = c1_ptxas.result()
-    print(f"K1, K4, K5, C1 and K2 with K3 built and loaded in "
+    print(f"K1, K4, K5 and K2 with K3 built and loaded in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({', '.join(p.name for p in libs)}); K0 probed them "
           f"({cb.probe_launch_count} launches)")
@@ -2290,12 +2195,6 @@ def main() -> int:
           f"trip max abs err {mp['c2c_err']:.3e}, r2c {mp['r2c_err']:.3e} "
           f"(< {GATE}); launches per c2c round trip {mp['counts']}, K1 per "
           f"r2c round trip {mp['r2c_launches']}")
-    torch.cuda.empty_cache()
-    c1 = cross_path(torch, ct, K, S, D, cb, gen)
-    print(f"C1 cross3 on {N}^3 f32 fields of the r2c inverse (strides "
-          f"{c1['in_strides']}): bit-equal to cross_ref (max abs diff "
-          f"{c1['max_abs_err']}), strides {c1['out_strides']} as the "
-          f"stack's; launches {c1['counts']}")
 
     # phase 6: the halo and stencil path
     torch.cuda.empty_cache()
@@ -2331,8 +2230,7 @@ def main() -> int:
           f"Taylor-Green Re 1600 {TG_STEPS} IF-RK4 steps in "
           f"{spec['tg_s']:.2f} s, largest relative deviation of energy and "
           f"dissipation from docs/tg_validation_n256.csv "
-          f"{spec['tg_worst']:.3e} (<= {TG_RTOL}), by t: {by_t}, C1 "
-          f"launches {spec['tg_c1']} ({spec['tg_c1'] / TG_STEPS:g} a step)"
+          f"{spec['tg_worst']:.3e} (<= {TG_RTOL}), by t: {by_t}"
           f"; path launches {spec['launches']}")
     if min(spec["launches"][k] for k in ("K0", "K5")) < 1:
         raise AssertionError(f"the spectral path skipped a kernel: "
@@ -2402,17 +2300,6 @@ def main() -> int:
           f"{k5t['flop_ms']:.4f} ms); torch.fft.fftn(dim=(1, 2)) "
           f"{k5t['cufft_ms']:.4f} ms = {k5g['cufft_ms']:.0f} GB/s; dft2_ref "
           f"{k5t['plain']:.3f} ms (runs {k5t['runs_ms']})")
-    torch.cuda.empty_cache()
-    c1t = cross_timing(torch, ct, perf, gen)
-    print(f"[{card}] C1 cross3 {N}^3 f32, the inverse's planes into the "
-          f"stack's layout: kernel {c1t['kernel']:.4f} ms = "
-          f"{c1t['nbytes'] / c1t['kernel'] / 1e6:.0f} GB/s, "
-          f"{c1t['bound_ms'] / c1t['kernel']:.1%} of its bound "
-          f"{c1t['bound_ms']:.4f} ms (bytes); cross_ref {c1t['plain']:.3f} "
-          f"ms (runs {c1t['runs_ms']}); torch.linalg.cross into the stack's "
-          f"layout {c1t['library_ms']:.3f} ms, into the inverse's planes "
-          f"{c1t['library_planes_ms']:.4f} ms; clone() of one field "
-          f"{c1t['clone_ms']:.4f} ms; ptxas {c1_ptxas}")
     pois = bench.poisson_headline(N=NS)
     tgh = bench.tg_headline(N=NS)
     nsh = bench.ns_headline(N=NS)
@@ -2594,7 +2481,6 @@ def main() -> int:
     p11_k5 = (p11["fft_tune"][FFT_TUNE_N[0]]["k5_launches"] + gr["k5_backward"]
               + sum(v["launches"]["K5"] for v in ex.values()))
     p11_k4 = sum(v["launches"]["K4"] for v in ex.values())
-    p11_c1 = sum(v["launches"]["C1"] for v in ex.values())
 
     # phase 12: the bench table, in a process of its own
     bt = bench_phase(torch, card)
@@ -2634,9 +2520,9 @@ def main() -> int:
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/probe.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:142",
-         "launches": (mp["counts"]["K0"] + c1["counts"]["K0"]
-                      + sp["launches"]["K0"] + spec["launches"]["K0"]
-                      + path["K0"] + bt["counts"]["K0"]),
+         "launches": (mp["counts"]["K0"] + sp["launches"]["K0"]
+                      + spec["launches"]["K0"] + path["K0"]
+                      + bt["counts"]["K0"]),
          "max_abs_err": k0_err,
          "ms": k0_ms,
          "plain_ms": k0_plain,
@@ -2682,17 +2568,6 @@ def main() -> int:
          "bound_ms": k5t["bound_ms"],
          "bound_by": k5t["bound_by"],
          "library_ms": k5t["cufft_ms"]},
-        {"name": "C1 cross3 (Taylor-Green's u x omega)",
-         "route": "cuda",
-         "source": "cudecomp_tpu_torch/csrc/cross3.cu",
-         "replaces": None,
-         "launches": c1["counts"]["C1"] + spec["tg_c1"] + p11_c1,
-         "max_abs_err": c1["max_abs_err"],
-         "ms": c1t["kernel"],
-         "plain_ms": c1t["plain"],
-         "bound_ms": c1t["bound_ms"],
-         "bound_by": "bytes",
-         "library_ms": c1t["library_ms"]},
         {"name": "K2 peer_a2a (one-sided all-to-all, 4 ranks on one card)",
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/peer.cu",

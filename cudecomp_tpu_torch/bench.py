@@ -451,367 +451,6 @@ def peer_headline(N: int = 512, width: int = 1, ranks: int = 4,
     return payload
 
 
-# -- the exchange synchronisation, weighed: tools/peer_sync.py -----------------
-
-#: ps_exchange's variants (tools/peer_sync_variants.cu); "lib" is K2 or K3
-#: as the library runs it
-SYNC_VARIANTS = {0: "spinning barrier kernels (the first design)",
-                 1: "stream writes and waits, entry barrier",
-                 2: "stream writes and waits, double buffered",
-                 3: "signal kernel and stream waits, double buffered"}
-#: ps_round's kinds, and "events": interprocess CUDA events and a gloo
-#: barrier
-SYNC_ROUNDS = {0: "a: spinning kernel", 1: "b: stream write and wait",
-               2: "b': signal kernel and stream wait",
-               "events": "c: interprocess events and a gloo barrier"}
-_SYNC_ERRORS = {1001: "a driver entry point is missing",
-                1002: "a device attribute query failed",
-                1003: "no 64-bit stream memory operations"}
-
-
-def build_sync_variants(source, out_dir) -> Path:
-    """nvcc of ``source`` (``tools/peer_sync_variants.cu``) with K0's file
-    and the library flags into ``out_dir``; returns the library's path."""
-    from cudecomp_tpu_torch.utils import cuda_build
-    lib = Path(out_dir, "libpeer_sync.so")
-    cmd = [str(cuda_build.nvcc_path()), *cuda_build.NVCC_FLAGS, "-o",
-           str(lib), str(cuda_build.CSRC_DIR / cuda_build.PROBE_SOURCE),
-           str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{res.stdout}"
-                           f"{res.stderr}")
-    return lib
-
-
-def _sync_lib(path):
-    import ctypes
-    lib = ctypes.CDLL(str(path))
-    p, i, i64, u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                      ctypes.c_uint64)
-    ip = ctypes.POINTER(ctypes.c_int)
-    lib.ps_caps.argtypes = [ip]
-    lib.ps_caps.restype = None
-    lib.ps_round.argtypes = [i, p, p, i, p, i, u64, p, ip, ip]
-    lib.ps_round.restype = i
-    lib.ps_exchange.argtypes = [i, p, p, p, p, i, p, i, u64, p, i, p, i,
-                                i64, i64, i64, p, ip, ip]
-    lib.ps_exchange.restype = i
-    return lib
-
-
-def _sync_check(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} failed: "
-                           f"{_SYNC_ERRORS.get(err, err)} ({err})")
-
-
-def _pair_groups(grid, name):
-    """A new gloo group with the members of this rank's ``name`` group of
-    ``grid`` (so that it has a workspace of its own); every rank calls."""
-    import torch.distributed as dist
-    mine = dist.get_process_group_ranks(grid.group(name))
-    every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, mine)
-    out = None
-    for members in sorted({tuple(m) for m in every}):
-        g = dist.new_group(list(members))
-        if dist.get_rank() in members:
-            out = g
-    return out
-
-
-def _profile_keys(fn) -> list:
-    """``[name, device type, count]`` of every event ``torch.profiler``
-    records around one call of ``fn`` and a synchronize."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [[e.key[:120], str(e.device_type).split(".")[-1], e.count]
-            for e in prof.key_averages()]
-
-
-def _traced_roundtrip(plan, x, reps: int = 2) -> dict:
-    """One ``performance.profile_trace`` capture of ``reps`` c2c round
-    trips of ``plan`` on ``x`` (after one untraced), in every rank: the
-    window on this rank's stream (CUDA events) and this process's device
-    time by kernel and its comm/local split, per round trip."""
-    import torch.distributed as dist
-    from cudecomp_tpu_torch import performance
-    cycle(plan, x)
-    torch.cuda.synchronize()
-    dist.barrier()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with tempfile.TemporaryDirectory() as d:
-        with performance.profile_trace(d):
-            start.record()
-            for _ in range(reps):
-                cycle(plan, x)
-            end.record()
-        end.synchronize()
-        a = performance.device_op_attribution(d)
-    return {"window_ms": start.elapsed_time(end) / reps,
-            "ops": {k: v / reps for k, v in a["ops"].items()},
-            "comm_ms": a["comm_ms"] / reps, "local_ms": a["local_ms"] / reps,
-            "lost": a["lost_launches"]}
-
-
-def peer_sync_rank(lib_path, N: int = 512, width: int = 1,
-                   rounds: int = 200, iters: int = 5, n_trials: int = 3,
-                   device="cuda") -> dict:
-    """In one rank of a gloo world whose ranks share the card: the rounds
-    of :data:`SYNC_ROUNDS` over the world, then K2 (a rank's N^3 c64
-    pencil over ``pr`` at pdims (2, 2)) and K3 (the y dim of the N^3 f32
-    x-pencil, width ``width``, periodic) under each variant of
-    :data:`SYNC_VARIANTS` and as the library runs them, in turns.  Each
-    variant's K2 and K3 are first held bit for bit to the plain executor
-    on the card.  Before them, while the process is young enough for the
-    profiler to keep every kernel record, the ``PALLAS_A2A`` round trip
-    at pdims (2, 2) traced (:func:`_traced_roundtrip`).  Times are
-    CUDA-event means; every rank calls."""
-    import ctypes
-    import time
-    import torch.distributed as dist
-    from cudecomp_tpu_torch.parallel import symmetric
-    lib = _sync_lib(lib_path)
-    dev = torch.device(device, torch.cuda.current_device())
-    W, me = dist.get_world_size(), dist.get_rank()
-    caps = (ctypes.c_int * 4)()
-    lib.ps_caps(caps)
-    res = {"caps": dict(zip(("mem_ops_64", "wait_nor", "flush_remote",
-                             "status"), list(caps)))}
-    kernels, memops = ctypes.c_int(0), ctypes.c_int(0)
-    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
-    fgrid, hgrid = peer_grids(N, device)
-    plan = DistributedFFT(grid=fgrid)
-    x = make_field(fgrid, seed=7)
-    res["roundtrip"] = _traced_roundtrip(plan, x)
-    del plan, x
-
-    # the rounds, over the world
-    world = dist.new_group(list(range(W)))
-    ws = symmetric.workspace(world, dev, 1)
-    peers = [p for p in range(W) if p != me]
-    cpeers = (ctypes.c_int * len(peers))(*peers)
-    epoch = [0]
-
-    def round_of(kind):
-        def go():
-            epoch[0] += 1
-            _sync_check(lib.ps_round(kind, ws.bases_dev.data_ptr(),
-                                     ws.bases_host, me, cpeers, len(peers),
-                                     epoch[0], stream(),
-                                     ctypes.byref(kernels),
-                                     ctypes.byref(memops)),
-                        f"round kind {kind}")
-        return go
-
-    ev = torch.cuda.Event(interprocess=True)
-    ev.record()
-    handles = [None] * W
-    dist.all_gather_object(handles, ev.ipc_handle())
-    peer_events = [torch.cuda.Event.from_ipc_handle(dev, handles[p])
-                   for p in peers]
-
-    def events_round():
-        ev.record()
-        dist.barrier()
-        for pe in peer_events:
-            torch.cuda.current_stream(dev).wait_event(pe)
-
-    def timed_rounds(fn):
-        out = []
-        for trial in range(n_trials + 1):
-            torch.cuda.synchronize()
-            dist.barrier()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            for _ in range(rounds):
-                fn()
-            end.record()
-            end.synchronize()
-            if trial:
-                out.append([start.elapsed_time(end) / rounds,
-                            (time.perf_counter() - t0) * 1e3 / rounds])
-        return {"ms": sum(o[0] for o in out) / len(out),
-                "host_ms": sum(o[1] for o in out) / len(out), "runs": out}
-
-    res["rounds"] = {}
-    for kind in SYNC_ROUNDS:
-        fn = events_round if kind == "events" else round_of(kind)
-        res["rounds"][str(kind)] = timed_rounds(fn)
-
-    # K2 and K3 under each variant, on groups of their own
-    vgroup = _pair_groups(fgrid, fgrid.axis_names[0])
-    hgroup = _pair_groups(hgrid, hgrid.axis_names[0])
-    P, gme = dist.get_world_size(vgroup), dist.get_rank(vgroup)
-    members = dist.get_process_group_ranks(vgroup)
-    shape = fgrid.buffer_shape(0)
-    bb = math.prod(shape) * 8 // P
-    he = (width,) * 3
-    hshape = hgrid.buffer_shape(0, he)
-    m = hshape[1] - 2 * width
-    hplans = [peer_kernels.halo_plan(hshape, 4, 1, width, m, (N // 2,) * 2,
-                                     r, True) for r in range(P)]
-    aplans = [peer_kernels.a2a_plan(P, r, bb) for r in range(P)]
-    need = 2 * max(aplans[0].recv_bytes, hplans[0].recv_bytes)
-    vws = symmetric.workspace(vgroup, dev, need)
-    hws = symmetric.workspace(hgroup, dev, need)
-    gpeers = [p for p in range(P) if p != gme]
-    cg = (ctypes.c_int * len(gpeers))(*gpeers)
-
-    def prepared(plan, ws_, *tensors):
-        tables = peer_kernels.move_tables(plan, gme, dev)
-        wb = peer_kernels.word_bytes(plan, *(t.data_ptr() for t in tensors))
-        mw = max(mv.rows * mv.row_bytes for mv in plan.puts + plan.unpacks)
-        return tables, wb, mw // wb
-
-    def variant_call(v, plan, ws_, src, dst, what):
-        tables, wb, mw = prepared(plan, ws_, src, dst)
-        half = ws_.recv_bytes // 2
-
-        def go():
-            _sync_check(lib.ps_exchange(
-                v, src.data_ptr(), dst.data_ptr(), ws_.bases_dev.data_ptr(),
-                ws_.bases_host, gme, cg, len(gpeers), ws_.next_exchange(),
-                tables[0].data_ptr(), len(plan.puts), tables[1].data_ptr(),
-                len(plan.unpacks), mw, wb, half, stream(),
-                ctypes.byref(kernels), ctypes.byref(memops)),
-                f"{what} variant {v}")
-        return go
-
-    def settle():
-        torch.cuda.synchronize()
-        dist.barrier()
-
-    # bit for bit against the plain executor, every member's data made
-    # from its world rank's seed
-    def seeded(w, shp, dtype):
-        g = torch.Generator(device=dev)
-        g.manual_seed(1000 + w)
-        return torch.randn(shp, generator=g, device=dev, dtype=dtype)
-
-    hmembers = dist.get_process_group_ranks(hgroup)
-    res["launches"], res["err"] = {}, {}
-    blocks = seeded(me, shape, torch.complex64).view(P, -1)
-    srcs = [seeded(w, shape, torch.complex64).view(P, -1) for w in members]
-    want = peer_kernels.apply_plans(aplans, srcs,
-                                    [torch.empty_like(s) for s in srcs])[gme]
-    del srcs
-    hb = [seeded(w, hshape, torch.float32) for w in hmembers]
-    hwant = peer_kernels.apply_plans(hplans, hb, hb)[gme]
-    for v in SYNC_VARIANTS:
-        out = torch.empty_like(blocks)
-        settle()
-        variant_call(v, aplans[gme], vws, blocks, out, "K2")()
-        k = (kernels.value, memops.value)
-        buf = seeded(me, hshape, torch.float32)
-        settle()
-        variant_call(v, hplans[gme], hws, buf, buf, "K3")()
-        settle()
-        res["launches"][str(v)] = {"K2": k, "K3": (kernels.value,
-                                                   memops.value)}
-        res["err"][str(v)] = [float((out - want).abs().max()),
-                              float((buf - hwant).abs().max()),
-                              torch.equal(out, want),
-                              torch.equal(buf, hwant)]
-    del hb, want, hwant
-    torch.cuda.empty_cache()
-
-    # what torch.profiler records of one exchange: the library's, and
-    # variant 2's
-    pr = fgrid.group(fgrid.axis_names[0])
-    peer_kernels.a2a(blocks, pr)  # its workspace, outside the profile
-    settle()
-    res["profile_lib"] = _profile_keys(lambda: peer_kernels.a2a(blocks, pr))
-    out = torch.empty_like(blocks)
-    settle()
-    res["profile_v2"] = _profile_keys(
-        variant_call(2, aplans[gme], vws, blocks, out, "K2"))
-
-    # the times, in turns: each variant, then the library
-    buf = seeded(me, hshape, torch.float32)
-    k2 = {str(v): variant_call(v, aplans[gme], vws, blocks, out, "K2")
-          for v in SYNC_VARIANTS}
-    k2["lib"] = lambda: peer_kernels.a2a(blocks, pr)
-    hpr = hgrid.group(hgrid.axis_names[0])
-    k3 = {str(v): variant_call(v, hplans[gme], hws, buf, buf, "K3")
-          for v in SYNC_VARIANTS}
-    k3["lib"] = lambda: peer_kernels.halo_exchange(
-        buf, hpr, 1, width, m, (N // 2,) * 2, True)
-
-    def t(fn):
-        settle()
-        times = time_fn(fn, n_warmup=1, n_trials=n_trials, iters=iters,
-                        device=dev)
-        return sum(times) / len(times) * 1e3
-
-    for what, calls in (("k2", k2), ("k3", k3)):
-        names = list(calls)
-        runs = {n: [] for n in names}
-        for n in names + names[::-1]:
-            runs[n].append(t(calls[n]))
-        res[what] = runs
-    settle()
-    return res
-
-
-def peer_sync_worker(rank: int, out_dir: str, kw: dict) -> None:
-    """One rank of :func:`peer_sync` (a ``run_card_ranks`` body)."""
-    res = peer_sync_rank(**kw)
-    if rank == 0:
-        res["mps"] = mps_active()
-    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
-
-
-def peer_sync(source, N: int = 512, ranks: int = 4, rounds: int = 200,
-              timeout: float = 600) -> dict:
-    """The synchronisation of K2 and K3 weighed on ``ranks`` processes that
-    share this card: builds ``source`` (``tools/peer_sync_variants.cu``)
-    and runs :func:`peer_sync_rank` in every rank.  Returns each rank's
-    results and, per round kind and per K2/K3 variant, the slowest rank's
-    mean ms."""
-    from cudecomp_tpu_torch.ops import cuda_kernels
-    from cudecomp_tpu_torch.utils.testing import run_card_ranks
-    _need_cuda()
-    peer_kernels.build()  # and K1, for the round trip: once, here
-    cuda_kernels.build()
-    with tempfile.TemporaryDirectory() as tmp:
-        lib = build_sync_variants(source, tmp)
-        run_card_ranks(peer_sync_worker, ranks, str(Path(tmp, "pg")),
-                       (tmp, dict(lib_path=str(lib), N=N, rounds=rounds)),
-                       timeout, "the exchange synchronisation variants")
-        per_rank = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-                    for r in range(ranks)]
-    trips = [r["roundtrip"] for r in per_rank]
-    ops = {}
-    for t in trips:
-        for k, v in t["ops"].items():
-            ops[k] = ops.get(k, 0.0) + v
-    busy = sum(ops.values())
-    window = max(t["window_ms"] for t in trips)
-    roundtrip = {"window_ms": window, "busy_ms": busy,
-                 "comm_ms": sum(t["comm_ms"] for t in trips),
-                 "idle_share": 1 - busy / window,
-                 "lost": sum(t["lost"] for t in trips),
-                 "ops": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
-    slowest = {
-        "roundtrip": roundtrip,
-        "rounds_ms": {k: max(r["rounds"][k]["ms"] for r in per_rank)
-                      for k in per_rank[0]["rounds"]},
-        "rounds_host_ms": {k: max(r["rounds"][k]["host_ms"]
-                                  for r in per_rank)
-                           for k in per_rank[0]["rounds"]},
-        **{f"{w}_ms": {k: max(sum(r[w][k]) / len(r[w][k]) for r in per_rank)
-                       for k in per_rank[0][w]} for w in ("k2", "k3")}}
-    return {"slowest": slowest, "mps": per_rank[0]["mps"],
-            "ranks": per_rank, "device": torch.cuda.get_device_name(0)}
-
 if __name__ == "__main__":
     kw = {}
     if len(sys.argv) > 1:

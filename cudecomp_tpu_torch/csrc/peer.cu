@@ -61,9 +61,9 @@
 // non-periodic edge) share the workspace.  A slot only grows, so a rank
 // that runs ahead of one it does not wait for is harmless, and a wait
 // compares with >=.  The first design, a spinning one-block barrier kernel
-// before the puts and before the unpacks, lives on in
-// tools/peer_sync_variants.cu (variant 0), with the entry-barrier variant
-// of this design (1); tools/peer_sync.py times them against this one.
+// before the puts and before the unpacks, was slower on a card that four
+// ranks time-slice: a spinning kernel holds the card, a stream wait yields
+// it.
 //
 // A lost peer.  A stream wait has no timer of its own.  ops/peer_kernels.py
 // records a CUDA event before each exchange and one after it, and a

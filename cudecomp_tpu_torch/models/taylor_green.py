@@ -27,7 +27,6 @@ import torch
 import torch.distributed as dist
 
 from cudecomp_tpu_torch.grid import GridDescriptor
-from cudecomp_tpu_torch.ops.cross import cross
 from cudecomp_tpu_torch.ops.fft import DistributedFFT
 from cudecomp_tpu_torch.ops.spectral import SpectralOperators
 from cudecomp_tpu_torch.parallel.collectives import all_reduce_grid
@@ -113,7 +112,12 @@ class TaylorGreenSolver:
         return f["sops"].project_solenoidal(nh)
 
     def _nonlinear(self, uh, f):
-        """Projected, dealiased nonlinear term ``u x omega``."""
+        """Projected, dealiased nonlinear term ``u x omega``.
+
+        The cross product writes into a tensor of ``u``'s layout (x
+        innermost, a plane per component), which the forward FFT reads
+        as it is.  An ``out=`` call has no backward, so this term does not
+        differentiate."""
         plan: DistributedFFT = f["plan"]
         with trace_range("cudecomp_tpu_torch.tg_nonlinear"):
             u = self._inverse(plan, uh)               # physical velocity
@@ -122,7 +126,8 @@ class TaylorGreenSolver:
                 w = self._curl_hat(uh, f)
             w = self._inverse(plan, w)                # vorticity
             with trace_range("cudecomp_tpu_torch.tg_cross"):
-                nl = cross(u, w)                      # u x w, one pass
+                nl = torch.linalg.cross(u, w, dim=-1,
+                                        out=torch.empty_like(u))
             nh = self._forward(plan, nl)
             with trace_range("cudecomp_tpu_torch.tg_project"):
                 mask = f["mask"][..., None]
