@@ -6,10 +6,11 @@ that the port builds, is right and starts on the card.
 
 Phases, each of which raises on failure (nothing is caught):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the K1 local-permute, K4 stencil, K5 fused 2-axis DFT
-     libraries and the one library of the K2 one-sided all-to-all and the
-     K3 one-sided halo ring from the checkout's sources, in parallel; K0,
-     the probe, runs once as each library loads;
+  2. build the K1 local-permute, K4 stencil, K5 fused 2-axis DFT and C2
+     spectral curl and projection libraries and the one library of the K2
+     one-sided all-to-all and the K3 one-sided halo ring from the
+     checkout's sources, in parallel; K0, the probe, runs once as each
+     library loads;
   3. K1 against its plain twin, bit for bit: bf16/f32/f64/c64/c128, both
      cyclic perms, ragged and degenerate shapes, and the 512^3 c64 shapes
      of the FFT path;
@@ -35,7 +36,13 @@ Phases, each of which raises on failure (nothing is caught):
      spectrum is held to torch.fft.fftn of the same global field (relative
      L2 error <= 1e-5), the round trip to max abs error < 5e-4, and the
      round trip must launch K1 exactly 4 times; an r2c round trip at 512^3
-     must pass the same 5e-4 gate;
+     must pass the same 5e-4 gate; C2, Taylor-Green's curl and masked
+     projection, on the (257, 512, 512, 3) c64 r2c forward of a random
+     field in the forward's layout (a plane per component) and on its
+     (re, im) plane pair: the curl, the projection and the projection
+     with Taylor-Green's dealias mask field, one launch each, in the
+     input's layout, within 4 ulps of the largest term of the formulas
+     (SpectralOperators._curl_formula, _project_formula);
   6. the halo and stencil path at 512^3 float32, pdims (1, 1), through the
      public entry points: update_halos (width 1, periodic) bit-equal to a
      plain wrapped-index buffer; diffusion_step, the dense 27-tap
@@ -54,14 +61,19 @@ Phases, each of which raises on failure (nothing is caught):
      (within 1e-5 of R(z)^n u0, max|div_h u| <= 1e-4 max|u|, 8 K5 launches
      per step); the Taylor-Green solver at Re 1600, IF-RK4, dt 2e-3, 250
      steps to t = 0.5, energy and dissipation at t = 0.1 ... 0.5 within
-     1e-4 of docs/tg_validation_n256.csv (the JAX package's f32 curve);
+     1e-4 of docs/tg_validation_n256.csv (the JAX package's f32 curve),
+     8 C2 launches per step and one per dissipation; one IF-RK4 step of
+     the solver with a complex (not split) state, 8 C2 launches, within
+     1e-5 rel L2 of the split solver's step;
   8. timing: the FFT round trip (ms per direction, GFLOPS), K1's bandwidth
      beside clone() and its plain twin; the diffusion step, K4 for the 7-tap
      and the dense 27-tap set in wrap mode beside its bound, clone(), the
      conv3d yardstick and its plain version, with the instance that ran
      and its registers and spills, the halo update and the CG iteration;
      K5 at (129, 256, 256) beside its bound, dft2_ref, cuFFT and clone()
-     of the same bytes (GB/s), with the cluster size it launches; K0
+     of the same bytes (GB/s), with the cluster size it launches; C2's
+     curl and masked projection on phase 5's state beside their bounds,
+     the formulas and clone(); K0
      beside clone() and its launch floor (an empty kernel's launch); the
      Poisson solve with K5 on and off, the Taylor-Green step
      and the projection-solver step; torch.profiler breakdowns by kernel, with
@@ -202,6 +214,7 @@ K5_EPS = 1e-5        # x max|reference| (tests/test_mxu_fft.py:94)
 RTOL_SPECTRAL = 1e-5
 LAP_GATE = 2e-4      # the 7-point operator amplifies u's f32 rounding
 TG_STEPS, TG_DT, TG_RTOL = 250, 2e-3, 1e-4
+C2_ULPS = 4          # x 2^-24 x the largest term of the formulas (f32)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 
@@ -470,16 +483,133 @@ def profiles_worker(rank, out_path):
 def reset_counts(K, S, D, cb):
     """Every launch count to 0, and the loaded libraries dropped, so the
     next path loads them (and runs K0) as a fresh process does."""
+    from cudecomp_tpu_torch.ops import spectral_kernel as C2
     K.reset_launch_count()
     S.reset_launch_count()
     D.reset_launch_count()
+    C2.reset_launch_count()
     cb.reset_probe_count()
     cb.load.cache_clear()
 
 
 def counts(K, S, D, cb):
+    from cudecomp_tpu_torch.ops import spectral_kernel as C2
     return {"K0": cb.probe_launch_count, "K1": K.launch_count,
-            "K4": S.launch_count, "K5": D.launch_count}
+            "K4": S.launch_count, "K5": D.launch_count,
+            "C2": C2.launch_count}
+
+
+# -- C2: Taylor-Green's curl and masked projection --------------------------------
+
+def c2_state(torch, ct, gen):
+    """The r2c forward of a random N^3 f32 vector field, (N/2+1, N, N, 3)
+    complex64 in the forward's layout (a plane per component); its
+    spectral operators; and Taylor-Green's (N/2+1, N, N) f32 mask field
+    (dealiasing and the mean mode), which the solver's projection
+    reads."""
+    from cudecomp_tpu_torch.ops.fft import DistributedFFT
+    from cudecomp_tpu_torch.ops.spectral import SpectralOperators
+    grid = ct.make_grid(ct.GridConfig(gdims=(N, N, N), pdims=(1, 1)), DEVICE)
+    plan = DistributedFFT(grid=grid, real=True)
+    x = torch.randn((N, N, N, 3), generator=gen, device=DEVICE)
+    vh = plan.forward(x)
+    del x
+    sops = SpectralOperators(plan=plan, dtype=torch.float32)
+    mask = ((sops.k_squared() > 0) & (sops.mask() > 0)).to(torch.float32)
+    return vh, sops, mask
+
+
+def c2_ops(sops, mask):
+    """``[(name, C2 call, formula, mask)]`` of the three calls checked and
+    timed: the curl, the projection, the masked projection."""
+    return [("curl", sops.curl, sops._curl_formula, None),
+            ("project", sops.project_solenoidal, sops._project_formula, None),
+            ("project_masked",
+             lambda v: sops.project_solenoidal(v, mask=mask),
+             lambda v: sops._project_formula(v, mask), mask)]
+
+
+def c2_path(torch, ct, K, S, D, cb, gen):
+    """Phase 5, C2 on :func:`c2_state` and on its (re, im) plane pair:
+    each call one launch, in the input's layout, within ``C2_ULPS`` of the
+    formulas' largest term (the kernel runs their operations in their
+    order, each rounded alone, so bit-equality is expected and
+    reported)."""
+    import types
+    from cudecomp_tpu_torch.ops import spectral_kernel as C2
+    from cudecomp_tpu_torch.ops.spectral import SpectralOperators
+    vh, sops, mask = c2_state(torch, ct, gen)
+    pair = tuple(torch.empty_like(vh, dtype=torch.float32) for _ in "ri")
+    pair[0].copy_(vh.real)
+    pair[1].copy_(vh.imag)
+    # the same operators on a split-complex plan's plane pairs
+    psops = SpectralOperators(plan=types.SimpleNamespace(split_complex=True))
+    psops._cache["k"] = sops.wavenumbers()
+    kmax = max(float(k.abs().max()) for k in sops.wavenumbers())
+    reset_counts(K, S, D, cb)
+    res = {"in_strides": vh.stride(), "max_abs_err": 0.0, "bit_equal": []}
+    for form, state, ops in (("complex", vh, sops), ("planes", pair, psops)):
+        ins = state if form == "planes" else (state,)
+        vmax = max(float(p.abs().max()) for p in ins)
+        for name, call, formula, m in c2_ops(ops, mask):
+            n0 = C2.launch_count
+            got = call(state)
+            torch.cuda.synchronize()
+            launched = C2.launch_count - n0
+            want = formula(state)
+            gots, wants = ((got, want) if form == "planes"
+                           else ((got,), (want,)))
+            err = max(float((g - w).abs().max()) for g, w in zip(gots, wants))
+            scale = (kmax if name == "curl" else 1.0) * vmax
+            strides = [g.stride() for g in gots]
+            if (launched != 1 or strides != [p.stride() for p in ins]
+                    or not err <= C2_ULPS * 2.0 ** -24 * scale):
+                raise AssertionError(
+                    f"C2 {name} on the {form} {tuple(vh.shape)} state: "
+                    f"{launched} launches (expected 1), strides {strides} "
+                    f"against {[p.stride() for p in ins]}, max abs diff "
+                    f"{err} (limit {C2_ULPS * 2.0 ** -24 * scale:.3e})")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            if all(torch.equal(g, w) for g, w in zip(gots, wants)):
+                res["bit_equal"].append(f"{name}.{form}")
+            del got, want, gots, wants
+    torch.cuda.synchronize()
+    res["counts"] = counts(K, S, D, cb)
+    if res["counts"]["C2"] != 6 or res["counts"]["K0"] != 1:
+        raise AssertionError(f"the C2 checks launched {res['counts']}, "
+                             f"expected 6 C2 launches and 1 K0")
+    return res
+
+
+def c2_timing(torch, ct, perf, gen):
+    """Phase 8, C2 on :func:`c2_state`: ms per call (means over trials)
+    of the curl and the masked projection by the kernel and by the
+    formulas, and of ``clone()`` of the state; each call's bound is its
+    bytes (the state read and written, the mask field read) over the
+    card's bandwidth."""
+    from cudecomp_tpu_torch.ops import spectral_kernel as C2
+    vh, sops, mask = c2_state(torch, ct, gen)
+
+    def t(fn):
+        return mean(perf.time_fn(fn, n_warmup=2, n_trials=5,
+                                 iters=10)) * 1e3
+
+    out = {}
+    for name, call, formula, m in c2_ops(sops, mask):
+        if name == "project":
+            continue
+        # plain, kernel, kernel, plain: drift shows as disagreeing pairs
+        runs = {"plain": [], "kernel": []}
+        for side in ("plain", "kernel", "kernel", "plain"):
+            fn = formula if side == "plain" else call
+            runs[side].append(t(lambda: fn(vh)))
+        nbytes = C2.counts(vh, m)["bytes"]
+        out[name] = {"kernel": mean(runs["kernel"]),
+                     "plain": mean(runs["plain"]), "runs_ms": runs,
+                     "nbytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    out["clone_ms"] = t(vh.clone)
+    return out
 
 
 # -- K4 --------------------------------------------------------------------------
@@ -805,6 +935,7 @@ def spectral_path(torch, ct, bench, K, S, D, cb):
     """Phase 7: the spectral path at 256^3 f32 through the public entry
     points; returns the checks' numbers and the path's launch counts."""
     from cudecomp_tpu_torch.models.incompressible import rk_stability
+    from cudecomp_tpu_torch.ops import spectral_kernel as C2
     grid = ct.make_grid(ct.GridConfig(gdims=(NS,) * 3, pdims=(1, 1)), DEVICE)
     h = 2 * math.pi / NS
     xs = torch.arange(NS, device=DEVICE, dtype=torch.float64) * h
@@ -869,6 +1000,7 @@ def spectral_path(torch, ct, bench, K, S, D, cb):
     uh, ftg = tg.setup(torch.float32)
     ref = tg_reference()
     devs = {}
+    c0 = C2.launch_count
     t0 = time.perf_counter()
     for i in range(TG_STEPS + 1):
         if i % 50 == 0:
@@ -880,6 +1012,7 @@ def spectral_path(torch, ct, bench, K, S, D, cb):
             uh = tg.step(uh, ftg, TG_DT)
     torch.cuda.synchronize()
     res["tg_s"] = time.perf_counter() - t0
+    res["tg_c2"] = C2.launch_count - c0
     res["tg_devs"] = devs
     res["tg_worst"] = max(max(v) for v in devs.values())
     if not all(uh_p.dtype == torch.float32 for uh_p in uh):
@@ -887,6 +1020,31 @@ def spectral_path(torch, ct, bench, K, S, D, cb):
     if not res["tg_worst"] <= TG_RTOL:
         raise AssertionError(f"Taylor-Green {NS}^3 Re 1600: relative "
                              f"deviation from the committed curve {devs}")
+    # 4 curls and 4 projections a step, one curl a dissipation
+    want = 8 * TG_STEPS + len(devs)
+    if res["tg_c2"] != want:
+        raise AssertionError(f"{TG_STEPS} Taylor-Green steps and "
+                             f"{len(devs)} dissipations launched C2 "
+                             f"{res['tg_c2']} times, expected {want}")
+    del uh
+    # one step with a complex state against one of the split solver
+    tgc = ct.models.TaylorGreenSolver(grid=grid, nu=1.0 / 1600.0)
+    uc, fc = tgc.setup(torch.float32)
+    us, fs = tg.setup(torch.float32)
+    c0 = C2.launch_count
+    uc = tgc.step(uc, fc, TG_DT)
+    torch.cuda.synchronize()
+    res["tg_c2_complex"] = C2.launch_count - c0
+    us = tg.step(us, fs, TG_DT)
+    res["tg_forms_rel"] = rel_l2(torch, uc, torch.complex(*us))
+    if res["tg_c2_complex"] != 8 or uc.dtype != torch.complex64:
+        raise AssertionError(f"a complex-state Taylor-Green step launched "
+                             f"C2 {res['tg_c2_complex']} times, expected 8; "
+                             f"the state is {uc.dtype}")
+    if not res["tg_forms_rel"] <= RTOL_SPECTRAL:
+        raise AssertionError(f"the complex-state Taylor-Green step is "
+                             f"{res['tg_forms_rel']} rel L2 from the split "
+                             f"solver's")
     torch.cuda.synchronize()
     res["launches"] = counts(K, S, D, cb)
     return res
@@ -1902,12 +2060,14 @@ def examples_phase(torch, K, S, D, cb):
     """Each of the six examples on the card at its default size, P = 1,
     between a reset and a read of the counts; its seconds."""
     import importlib
+    from cudecomp_tpu_torch.ops import spectral_kernel as C2
     out = {}
     for name in EXAMPLES:
         mod = importlib.import_module(f"cudecomp_tpu_torch.examples.{name}")
         K.reset_launch_count()
         S.reset_launch_count()
         D.reset_launch_count()
+        C2.reset_launch_count()
         cb.reset_probe_count()
         secs = mod.main(["--device", DEVICE])
         torch.cuda.synchronize()
@@ -2142,6 +2302,7 @@ def main() -> int:
     from cudecomp_tpu_torch.ops import cuda_kernels as K
     from cudecomp_tpu_torch.ops import dft2 as D
     from cudecomp_tpu_torch.ops import peer_kernels as PK
+    from cudecomp_tpu_torch.ops import spectral_kernel as C2
     from cudecomp_tpu_torch.ops import stencil_kernel as S
     from cudecomp_tpu_torch.utils import cuda_build as cb
     # phases 5 and 6 must run with the K5 knob unset; phase 7 sets it
@@ -2155,16 +2316,19 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
 
-    # phase 2: build K1, K4, K5 and the library of K2 and K3 side by side;
-    # K0 probes each at load
+    # phase 2: build K1, K4, K5, C2 and the library of K2 and K3 side by
+    # side; K0 probes each at load
     torch.cuda.init()
     t0 = time.perf_counter()
-    builds = (K.build, S.build, D.build, PK.build)
-    with ThreadPoolExecutor(len(builds) + 1) as pool:
+    builds = (K.build, S.build, D.build, C2.build, PK.build)
+    with ThreadPoolExecutor(len(builds) + 2) as pool:
         ptxas = pool.submit(cb.ptxas_report, S.SOURCES)
+        c2_ptxas = pool.submit(cb.ptxas_report, C2.SOURCES)
         libs = list(pool.map(lambda build: build(), builds))
         k4_ptxas = ptxas.result()
-    print(f"K1, K4, K5 and K2 with K3 built and loaded in "
+        c2_ptxas = c2_ptxas.result()
+    print(f"C2 ptxas: {c2_ptxas}")
+    print(f"K1, K4, K5, C2 and K2 with K3 built and loaded in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({', '.join(p.name for p in libs)}); K0 probed them "
           f"({cb.probe_launch_count} launches)")
@@ -2195,6 +2359,15 @@ def main() -> int:
           f"trip max abs err {mp['c2c_err']:.3e}, r2c {mp['r2c_err']:.3e} "
           f"(< {GATE}); launches per c2c round trip {mp['counts']}, K1 per "
           f"r2c round trip {mp['r2c_launches']}")
+    torch.cuda.empty_cache()
+    c2 = c2_path(torch, ct, K, S, D, cb, gen)
+    print(f"C2 spectral3 on the {N}^3 r2c forward's c64 state (strides "
+          f"{c2['in_strides']}) and its plane pair: curl, projection and "
+          f"masked projection each one launch, in the input's layout, max "
+          f"abs diff to the formulas {c2['max_abs_err']:.3e} (within "
+          f"{C2_ULPS} ulps of the largest term); bit-equal: "
+          f"{c2['bit_equal']}; launches {c2['counts']}")
+    torch.cuda.empty_cache()
 
     # phase 6: the halo and stencil path
     torch.cuda.empty_cache()
@@ -2230,7 +2403,10 @@ def main() -> int:
           f"Taylor-Green Re 1600 {TG_STEPS} IF-RK4 steps in "
           f"{spec['tg_s']:.2f} s, largest relative deviation of energy and "
           f"dissipation from docs/tg_validation_n256.csv "
-          f"{spec['tg_worst']:.3e} (<= {TG_RTOL}), by t: {by_t}"
+          f"{spec['tg_worst']:.3e} (<= {TG_RTOL}), by t: {by_t}, C2 "
+          f"launches {spec['tg_c2']}; one complex-state step "
+          f"{spec['tg_c2_complex']} C2 launches, rel L2 from the split "
+          f"step {spec['tg_forms_rel']:.3e} (<= {RTOL_SPECTRAL})"
           f"; path launches {spec['launches']}")
     if min(spec["launches"][k] for k in ("K0", "K5")) < 1:
         raise AssertionError(f"the spectral path skipped a kernel: "
@@ -2300,6 +2476,19 @@ def main() -> int:
           f"{k5t['flop_ms']:.4f} ms); torch.fft.fftn(dim=(1, 2)) "
           f"{k5t['cufft_ms']:.4f} ms = {k5g['cufft_ms']:.0f} GB/s; dft2_ref "
           f"{k5t['plain']:.3f} ms (runs {k5t['runs_ms']})")
+    torch.cuda.empty_cache()
+    c2t = c2_timing(torch, ct, perf, gen)
+    for name in ("curl", "project_masked"):
+        e = c2t[name]
+        print(f"[{card}] C2 spectral3 {name} on the {N}^3 r2c state (c64, a "
+              f"plane per component): kernel {e['kernel']:.4f} ms = "
+              f"{e['nbytes'] / e['kernel'] / 1e6:.0f} GB/s, "
+              f"{e['bound_ms'] / e['kernel']:.1%} of its bound "
+              f"{e['bound_ms']:.4f} ms ({e['nbytes']} bytes); the formulas "
+              f"{e['plain']:.3f} ms (runs {e['runs_ms']})")
+    print(f"[{card}] C2: clone() of the state {c2t['clone_ms']:.4f} ms; "
+          f"ptxas {c2_ptxas}")
+    torch.cuda.empty_cache()
     pois = bench.poisson_headline(N=NS)
     tgh = bench.tg_headline(N=NS)
     nsh = bench.ns_headline(N=NS)
@@ -2481,6 +2670,7 @@ def main() -> int:
     p11_k5 = (p11["fft_tune"][FFT_TUNE_N[0]]["k5_launches"] + gr["k5_backward"]
               + sum(v["launches"]["K5"] for v in ex.values()))
     p11_k4 = sum(v["launches"]["K4"] for v in ex.values())
+    p11_c2 = sum(v["launches"]["C2"] for v in ex.values())
 
     # phase 12: the bench table, in a process of its own
     bt = bench_phase(torch, card)
@@ -2515,14 +2705,16 @@ def main() -> int:
     t120 = perm_t[(1, 2, 0)]
     ms_to_bound = 1e3 / HBM_BYTES_PER_S
     k4_flops = 2 * 27 * N ** 3
+    c2_launches = (c2["counts"]["C2"] + spec["tg_c2"] + spec["tg_c2_complex"]
+                   + p11_c2)
     kernels = {"kernels": [
         {"name": "K0 probe copy",
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/probe.cu",
          "replaces": "cudecomp_tpu/ops/pallas_kernels.py:142",
-         "launches": (mp["counts"]["K0"] + sp["launches"]["K0"]
-                      + spec["launches"]["K0"] + path["K0"]
-                      + bt["counts"]["K0"]),
+         "launches": (mp["counts"]["K0"] + c2["counts"]["K0"]
+                      + sp["launches"]["K0"] + spec["launches"]["K0"]
+                      + path["K0"] + bt["counts"]["K0"]),
          "max_abs_err": k0_err,
          "ms": k0_ms,
          "plain_ms": k0_plain,
@@ -2568,6 +2760,29 @@ def main() -> int:
          "bound_ms": k5t["bound_ms"],
          "bound_by": k5t["bound_by"],
          "library_ms": k5t["cufft_ms"]},
+        # both C2 rows count the launches of both entries
+        {"name": "C2 spectral3 curl (i k x v)",
+         "route": "cuda",
+         "source": "cudecomp_tpu_torch/csrc/spectral3.cu",
+         "replaces": None,
+         "launches": c2_launches,
+         "max_abs_err": c2["max_abs_err"],
+         "ms": c2t["curl"]["kernel"],
+         "plain_ms": c2t["curl"]["plain"],
+         "bound_ms": c2t["curl"]["bound_ms"],
+         "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "C2 spectral3 masked projection (m v - k (k . m v)/|k|^2)",
+         "route": "cuda",
+         "source": "cudecomp_tpu_torch/csrc/spectral3.cu",
+         "replaces": None,
+         "launches": c2_launches,
+         "max_abs_err": c2["max_abs_err"],
+         "ms": c2t["project_masked"]["kernel"],
+         "plain_ms": c2t["project_masked"]["plain"],
+         "bound_ms": c2t["project_masked"]["bound_ms"],
+         "bound_by": "bytes",
+         "library_ms": None},
         {"name": "K2 peer_a2a (one-sided all-to-all, 4 ranks on one card)",
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/peer.cu",

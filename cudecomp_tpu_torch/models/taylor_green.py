@@ -108,16 +108,19 @@ class TaylorGreenSolver:
         return f["sops"].curl(uh)
 
     def _project(self, nh, f):
-        """Leray projection: ``nh - k (k . nh) / k^2``."""
-        return f["sops"].project_solenoidal(nh)
+        """Dealiased Leray projection: ``m nh - k (k . m nh) / k^2``, ``m``
+        the mask field (dealiasing and the mean mode), in one pass."""
+        return f["sops"].project_solenoidal(nh, mask=f["mask"])
 
     def _nonlinear(self, uh, f):
         """Projected, dealiased nonlinear term ``u x omega``.
 
-        The cross product writes into a tensor of ``u``'s layout (x
-        innermost, a plane per component), which the forward FFT reads
-        as it is.  An ``out=`` call has no backward, so this term does not
-        differentiate."""
+        Every field keeps the layout its producer gives it: the cross
+        product writes into a tensor of ``u``'s layout (x innermost, a
+        plane per component), which the forward FFT reads as it is, and the
+        curl and the projection write theirs in the spectral state's (a
+        plane per component).  An ``out=`` call has no backward, so this
+        term does not differentiate."""
         plan: DistributedFFT = f["plan"]
         with trace_range("cudecomp_tpu_torch.tg_nonlinear"):
             u = self._inverse(plan, uh)               # physical velocity
@@ -130,8 +133,6 @@ class TaylorGreenSolver:
                                         out=torch.empty_like(u))
             nh = self._forward(plan, nl)
             with trace_range("cudecomp_tpu_torch.tg_project"):
-                mask = f["mask"][..., None]
-                nh = self._t(lambda a: a * mask, nh)
                 return self._project(nh, f)
 
     def _rhs(self, uh, f):

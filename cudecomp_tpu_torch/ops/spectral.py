@@ -20,6 +20,16 @@ there is no trace to fuse them into).
 
 A k-derived field is cast to the real dtype of the state it multiplies:
 float64 times complex64 would promote the state to complex128.
+
+The curl and the (optionally masked) Leray projection return a state of
+the input's layout (``torch.empty_like`` of the tensor, or of each plane
+of a plane pair), so the component planes the FFT returns stay planes.
+On a CUDA state (complex64 or complex128, or a pair of float32 or float64
+planes) each is one pass of C2
+(:mod:`~cudecomp_tpu_torch.ops.spectral_kernel`), under autograd too; a
+CPU state takes the formulas here, which define the result.  Each call is
+a ``cudecomp_tpu_torch.curl`` or ``cudecomp_tpu_torch.project_solenoidal``
+trace range with the counts of :func:`spectral_kernel.counts`.
 """
 
 from __future__ import annotations
@@ -32,9 +42,11 @@ import numpy as np
 import torch
 
 from cudecomp_tpu_torch import geometry
+from cudecomp_tpu_torch.ops import spectral_kernel
 from cudecomp_tpu_torch.ops.fft import DistributedFFT
 from cudecomp_tpu_torch.parallel.collectives import all_reduce_grid
 from cudecomp_tpu_torch.utils.arrays import scatter_global
+from cudecomp_tpu_torch.utils.tracing import trace_range
 
 __all__ = ["SpectralOperators", "wavenumber_fields", "wavenumber_broadcasts",
            "dealias_axis_broadcasts", "dealias_mask"]
@@ -251,11 +263,26 @@ class SpectralOperators:
     def _comp(self, vh, c: int):
         return self._t(lambda a: a[..., c], vh)
 
-    def _stack(self, comps):
+    def _stack(self, comps, like=None):
+        """Components onto the last dim: stacked, or written into
+        ``torch.empty_like(like)`` (of each plane of a plane pair), which
+        keeps ``like``'s layout (the copies are differentiable)."""
+        if like is None:
+            if self._split():
+                return tuple(torch.stack([c[j] for c in comps], dim=-1)
+                             for j in (0, 1))
+            return torch.stack(comps, dim=-1)
+
+        def fill(like, comps):
+            out = torch.empty_like(like)
+            for c, x in enumerate(comps):
+                out[..., c] = x
+            return out
+
         if self._split():
-            return tuple(torch.stack([c[j] for c in comps], dim=-1)
+            return tuple(fill(like[j], [c[j] for c in comps])
                          for j in (0, 1))
-        return torch.stack(comps, dim=-1)
+        return fill(like, comps)
 
     # -- operators ---------------------------------------------------------------
 
@@ -284,14 +311,24 @@ class SpectralOperators:
         return self._mul_i(acc)
 
     def curl(self, vh):
-        """``(..., 3)`` vector spectral state -> ``(..., 3)`` curl."""
+        """``(..., 3)`` vector spectral state -> ``(..., 3)`` curl ``i k x
+        v``, in ``vh``'s layout: C2 where it takes the state
+        (:func:`spectral_kernel.takes`), else :meth:`_curl_formula`."""
+        with trace_range("cudecomp_tpu_torch.curl",
+                         **spectral_kernel.counts(vh)):
+            if spectral_kernel.takes(vh):
+                return spectral_kernel.curl(vh, self.wavenumbers())
+            return self._curl_formula(vh)
+
+    def _curl_formula(self, vh):
+        """The plain version of :meth:`curl`."""
         kx, ky, kz = self.wavenumbers()
         sub = lambda a, b: self._t(torch.sub, a, b)
         v0, v1, v2 = (self._comp(vh, c) for c in range(3))
         wx = sub(self._kmul(ky, v2), self._kmul(kz, v1))
         wy = sub(self._kmul(kz, v0), self._kmul(kx, v2))
         wz = sub(self._kmul(kx, v1), self._kmul(ky, v0))
-        return self._stack([self._mul_i(w) for w in (wx, wy, wz)])
+        return self._stack([self._mul_i(w) for w in (wx, wy, wz)], like=vh)
 
     def laplacian(self, sh, comp: bool = False):
         """``lap = -|k|^2`` on scalar (or, with ``comp=True``, per-component
@@ -343,9 +380,23 @@ class SpectralOperators:
         out.index_add_(0, shell[keep], dens.reshape(-1)[keep])
         return all_reduce_grid(out, self.plan.grid)
 
-    def project_solenoidal(self, vh):
+    def project_solenoidal(self, vh, mask=None):
         """Leray projection ``v - k (k . v)/|k|^2``: removes the
-        compressible part of a ``(..., 3)`` vector spectral state."""
+        compressible part of a ``(..., 3)`` vector spectral state, in
+        ``vh``'s layout.  ``mask``, a real field broadcast against one
+        component, multiplies ``vh`` first (``v = mask * vh``) in the same
+        pass.  C2 where it takes the state (:func:`spectral_kernel.takes`),
+        else :meth:`_project_formula`."""
+        with trace_range("cudecomp_tpu_torch.project_solenoidal",
+                         **spectral_kernel.counts(vh, mask)):
+            if spectral_kernel.takes(vh):
+                return spectral_kernel.project(vh, self.wavenumbers(), mask)
+            return self._project_formula(vh, mask)
+
+    def _project_formula(self, vh, mask=None):
+        """The plain version of :meth:`project_solenoidal`."""
+        if mask is not None:
+            vh = self._kmul(mask, vh, comp=True)
         kx, ky, kz = self.wavenumbers()
         inv_k2 = self.inv_k_squared()
         add = lambda a, b: self._t(torch.add, a, b)
@@ -356,4 +407,4 @@ class SpectralOperators:
         s = self._kmul(inv_k2, div)
         return self._stack([sub(v0, self._kmul(kx, s)),
                             sub(v1, self._kmul(ky, s)),
-                            sub(v2, self._kmul(kz, s))])
+                            sub(v2, self._kmul(kz, s))], like=vh)
