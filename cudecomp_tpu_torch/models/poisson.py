@@ -9,13 +9,23 @@ field is built once per solver in float64 (with the r2c halving and the
 padded Z-pencil layout) and cast once per state dtype, so a complex64
 spectrum stays complex64.  :meth:`PoissonSolver.solve_cg` is the
 matrix-free conjugate-gradient solve of the discrete equation, whose
-matvec is one K4 stencil pass.
+matvec is one K4 stencil pass; it runs the public, resumable iteration
+:meth:`PoissonSolver.cg_init` / :meth:`PoissonSolver.cg_iterate` on a
+:class:`CGState`.
+
+Each CG iteration is a ``cg_iter`` span holding, in order, ``cg_matvec``
+(the K4 pass and, for uniform spacings, the ``-1/h^2`` scale), ``cg_dot``
+(``p . Ap``), ``cg_update`` (alpha, ``u`` and ``r``), ``cg_dot``
+(``r . r``), ``cg_update`` (beta and ``p``) and, on the host check's
+iterations, ``cg_check`` (the host read of ``r . r``).  ``cg_iter`` and
+each ``cg_dot`` count ``bytes``: what their passes over the grid read
+and write, by this implementation's count (a scalar's bytes left out).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +33,39 @@ import torch
 from cudecomp_tpu_torch.grid import GridDescriptor
 from cudecomp_tpu_torch.ops.fft import DistributedFFT
 from cudecomp_tpu_torch.parallel.collectives import all_reduce_grid
-from cudecomp_tpu_torch.utils.tracing import trace_range
+from cudecomp_tpu_torch.utils.tracing import PREFIX, trace_range
+
+
+class CGState(NamedTuple):
+    """A CG solve in progress (:meth:`PoissonSolver.cg_init`,
+    :meth:`PoissonSolver.cg_iterate`).
+
+    ``u``, ``r``, ``p``: the iterate, its recurrence residual and the
+    search direction, this rank's X-pencil tensors; ``rs``: ``r . r`` over
+    the grid, a 0-d tensor on the device; ``alpha``: the step length of
+    the iteration that made the state (None at the start); ``it``: the
+    iterations done; ``rs_host``: ``r . r`` as the host last read it
+    (``|b|^2`` at the start); ``bnorm``: ``|b|``, read at the start."""
+    u: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rs: torch.Tensor
+    alpha: Optional[torch.Tensor]
+    it: int
+    rs_host: float
+    bnorm: float
+
+    @property
+    def rel_residual(self) -> float:
+        """``|r| / |b|`` at the host's last read."""
+        return float(np.sqrt(self.rs_host)) / max(self.bnorm, 1e-300)
+
+
+def _guarded_div(num, den):
+    """``num / den``, 0 where ``den`` is not positive: a state that
+    converged between two host checks stays where it is."""
+    ok = den > 0
+    return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,11 +172,92 @@ class PoissonSolver:
     def _mean(self, t: torch.Tensor) -> torch.Tensor:
         return self._sum(t) / float(np.prod(self.grid.config.gdims))
 
+    def _cg_matvec(self):
+        """The CG operator ``-lap_h`` as ``(matvec, items)``: ``items`` is
+        the values per cell its passes read and write (4: the K4 pass of
+        ``laplacian7`` and the ``-1/h^2`` scale, for uniform spacings; 2:
+        one weighted 7-tap ``stencil_apply`` pass otherwise)."""
+        from cudecomp_tpu_torch.ops.stencil import laplacian7, stencil_apply
+        periods = (True, True, True)
+        op = self._cache.get("cg_op")
+        if op is None:
+            cfg = self.grid.config
+            hs = [self.lengths[d] / cfg.gdims[d] for d in range(3)]
+            if np.allclose(hs, hs[0]):
+                op = 1.0 / (hs[0] * hs[0])
+            else:
+                # anisotropic 7-point weights, laid out in MEMORY order
+                # (stencil offsets are memory-dim offsets)
+                order = cfg.mem_order(0)
+                w = np.zeros((3, 3, 3))
+                for d in range(3):
+                    inv = 1.0 / (hs[order[d]] ** 2)
+                    idx_lo = [1, 1, 1]
+                    idx_hi = [1, 1, 1]
+                    idx_lo[d], idx_hi[d] = 0, 2
+                    w[tuple(idx_lo)] = w[tuple(idx_hi)] = inv
+                    w[1, 1, 1] -= 2.0 * inv
+                op = -w  # matvec is -lap (PSD)
+            self._cache["cg_op"] = op
+        if isinstance(op, float):
+            def matvec(v):
+                return (-op) * laplacian7(self.grid, v, 0, periods)
+            return matvec, 4
+
+        def weighted(v):
+            return stencil_apply(self.grid, v, op, 0, periods)
+        return weighted, 2
+
+    def cg_init(self, f) -> CGState:
+        """The state a CG solve of ``lap_h(u) = f`` starts from (see
+        :meth:`solve_cg`): ``b = -(f - mean(f))``, ``u = 0``, ``r = p =
+        b``.  Reads ``|b|`` on the host once."""
+        b = -(f - self._mean(f))
+        rs = self._sum(b * b)
+        bnorm = float(torch.sqrt(rs))
+        return CGState(torch.zeros_like(b), b, b, rs, None, 0,
+                       bnorm * bnorm, bnorm)
+
+    def cg_iterate(self, state: CGState, check_every: int = 64) -> CGState:
+        """One CG iteration from ``state``: the state after it.  Nothing
+        of ``state`` is written, so a caller may keep it.
+
+        The iteration enqueues its work without a host sync, except on
+        iterations whose count is a multiple of ``check_every``: there the
+        host reads ``r . r`` into ``rs_host`` (the ``cg_check`` span).
+        ``alpha = (r . r) / (p . Ap)`` and ``beta`` are guarded
+        divisions, so that a state that converged between two checks stays
+        where it is."""
+        matvec, items = self._cg_matvec()
+        u, r, p, rs = state.u, state.r, state.p, state.rs
+        v = p.numel() * p.element_size()
+        it, rs_host = state.it + 1, state.rs_host
+        # the matvec, p * Ap and its sum (4 v), u and r: a product and a
+        # sum each (10 v), r * r and its sum (3 v), p (5 v)
+        with trace_range(PREFIX + "cg_iter", bytes=(items + 22) * v):
+            with trace_range(PREFIX + "cg_matvec"):
+                ap = matvec(p)
+            with trace_range(PREFIX + "cg_dot", bytes=4 * v):
+                pap = self._sum(p * ap)
+            with trace_range(PREFIX + "cg_update"):
+                alpha = _guarded_div(rs, pap)
+                u = u + alpha * p
+                r = r - alpha * ap
+            with trace_range(PREFIX + "cg_dot", bytes=3 * v):
+                rs_new = self._sum(r * r)
+            with trace_range(PREFIX + "cg_update"):
+                p = r + _guarded_div(rs_new, rs) * p
+            if it % check_every == 0:
+                with trace_range(PREFIX + "cg_check"):
+                    rs_host = float(rs_new)
+        return CGState(u, r, p, rs_new, alpha, it, rs_host, state.bnorm)
+
     def solve_cg(self, f, tol: float = 1e-8, maxiter: int = 1000,
                  check_every: int = 64):
         """Matrix-free conjugate-gradient solve of the DISCRETE 7-point
         Poisson equation ``lap_h(u) = f`` (periodic, zero mean) for this
-        rank's X-pencil tensor ``f``.
+        rank's X-pencil tensor ``f``: :meth:`cg_init`, then
+        :meth:`cg_iterate` in chunks of ``check_every``.
 
         The matvec is one K4 stencil pass per iteration: ``laplacian7``
         scaled by ``-1/h^2`` for uniform spacings, a weighted 7-tap
@@ -151,60 +274,13 @@ class PoissonSolver:
 
         Returns ``(u, iters, rel_residual)``, the last two Python scalars.
         """
-        from cudecomp_tpu_torch.ops.stencil import laplacian7, stencil_apply
-        cfg = self.grid.config
-        hs = [self.lengths[d] / cfg.gdims[d] for d in range(3)]
-        periods = (True, True, True)
         check_every = max(1, min(int(check_every), int(maxiter)))
-
-        if np.allclose(hs, hs[0]):
-            inv_h2 = 1.0 / (hs[0] * hs[0])
-
-            def matvec(v):
-                return (-inv_h2) * laplacian7(self.grid, v, 0, periods)
-        else:
-            # anisotropic 7-point weights, laid out in MEMORY order
-            # (stencil offsets are memory-dim offsets)
-            order = cfg.mem_order(0)
-            w = np.zeros((3, 3, 3))
-            for d in range(3):
-                inv = 1.0 / (hs[order[d]] ** 2)
-                idx_lo = [1, 1, 1]
-                idx_hi = [1, 1, 1]
-                idx_lo[d], idx_hi[d] = 0, 2
-                w[tuple(idx_lo)] = w[tuple(idx_hi)] = inv
-                w[1, 1, 1] -= 2.0 * inv
-            w = -w  # matvec is -lap (PSD)
-
-            def matvec(v):
-                return stencil_apply(self.grid, v, w, 0, periods)
-
-        def guarded_div(num, den):
-            ok = den > 0
-            return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
-
-        def step(u, r, p, rs):
-            ap = matvec(p)
-            alpha = guarded_div(rs, self._sum(p * ap))
-            u = u + alpha * p
-            r = r - alpha * ap
-            rs_new = self._sum(r * r)
-            beta = guarded_div(rs_new, rs)
-            return u, r, r + beta * p, rs_new
-
         with trace_range("cudecomp_tpu_torch.poisson_solve_cg"):
-            b = -(f - self._mean(f))
-            rs = self._sum(b * b)
-            bnorm_h = float(torch.sqrt(rs))
-            u, r, p = torch.zeros_like(b), b, b
-            it = 0
-            rs_h = bnorm_h * bnorm_h  # rs0: reported when maxiter < 1
-            while it < maxiter:
+            state = self.cg_init(f)
+            while state.it < maxiter:
                 for _ in range(check_every):
-                    u, r, p, rs = step(u, r, p, rs)
-                it += check_every
-                rs_h = float(rs)
-                if np.sqrt(rs_h) <= tol * bnorm_h:
+                    state = self.cg_iterate(state, check_every)
+                if np.sqrt(state.rs_host) <= tol * state.bnorm:
                     break
-            return (u - self._mean(u), it,
-                    float(np.sqrt(rs_h)) / max(bnorm_h, 1e-300))
+            return (state.u - self._mean(state.u), state.it,
+                    state.rel_residual)
