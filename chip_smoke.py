@@ -6,8 +6,9 @@ that the port builds, is right and starts on the card.
 
 Phases, each of which raises on failure (nothing is caught):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the K1 local-permute, K4 stencil, K5 fused 2-axis DFT and C2
-     spectral curl and projection libraries and the one library of the K2
+  2. build the K1 local-permute, K4 stencil, K5 fused 2-axis DFT, C2
+     spectral curl and projection and C3 CG-pass libraries and the one
+     library of the K2
      one-sided all-to-all and the K3 one-sided halo ring from the
      checkout's sources, in parallel; K0, the probe, runs once as each
      library loads;
@@ -48,9 +49,13 @@ Phases, each of which raises on failure (nothing is caught):
      plain wrapped-index buffer; diffusion_step, the dense 27-tap
      stencil_apply and its backward, each launching K4 once and held to a
      plain sum of torch.roll terms; solve_cg at 256^3 (tol 1e-5), whose
-     residual recomputed plainly must be <= 2e-5, launching K4 once per
-     iteration.  Phases 5 and 6 run with CUDECOMP_TPU_FFT_FUSED2 unset and
-     must launch K5 no time;
+     residual recomputed plainly must be <= 2e-5, launching K4 once and C3
+     three times per iteration; C3's three passes on four random 1024^3
+     f32 vectors (the cg1024.iter cell's size): the new u, r and p
+     bit-equal to the formulas of models/poisson.py for the same scalars,
+     alpha too, and p . Ap and the new r . r within 2^-24 of float64 sums,
+     one call of each entry (cg_kernel.calls).  Phases 5 and 6 run with CUDECOMP_TPU_FFT_FUSED2 unset
+     and must launch K5 no time;
   7. the spectral path at 256^3 float32, pdims (1, 1), natural layout,
      with CUDECOMP_TPU_FFT_FUSED2=1 for the K5 cases only: the
      split-complex PoissonSolver on u = sin x cos 2y sin 3z (solve within
@@ -73,7 +78,9 @@ Phases, each of which raises on failure (nothing is caught):
      K5 at (129, 256, 256) beside its bound, dft2_ref, cuFFT and clone()
      of the same bytes (GB/s), with the cluster size it launches; C2's
      curl and masked projection on phase 5's state beside their bounds,
-     the formulas and clone(); K0
+     the formulas and clone(); C3's three passes at 1024^3 f32 beside
+     their bounds (2, 6 and 3 vectors of 4 GiB), the formulas and clone();
+     K0
      beside clone() and its launch floor (an empty kernel's launch); the
      Poisson solve with K5 on and off, the Taylor-Green step
      and the projection-solver step; torch.profiler breakdowns by kernel, with
@@ -215,6 +222,7 @@ RTOL_SPECTRAL = 1e-5
 LAP_GATE = 2e-4      # the 7-point operator amplifies u's f32 rounding
 TG_STEPS, TG_DT, TG_RTOL = 250, 2e-3, 1e-4
 C2_ULPS = 4          # x 2^-24 x the largest term of the formulas (f32)
+C3_N = 1024          # C3's vectors: the cg1024.iter cell's, 4 GiB each
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 
@@ -483,20 +491,24 @@ def profiles_worker(rank, out_path):
 def reset_counts(K, S, D, cb):
     """Every launch count to 0, and the loaded libraries dropped, so the
     next path loads them (and runs K0) as a fresh process does."""
+    from cudecomp_tpu_torch.ops import cg_kernel as C3
     from cudecomp_tpu_torch.ops import spectral_kernel as C2
     K.reset_launch_count()
     S.reset_launch_count()
     D.reset_launch_count()
     C2.reset_launch_count()
+    C3.reset_launch_count()
     cb.reset_probe_count()
     cb.load.cache_clear()
 
 
 def counts(K, S, D, cb):
+    from cudecomp_tpu_torch.ops import cg_kernel as C3
     from cudecomp_tpu_torch.ops import spectral_kernel as C2
     return {"K0": cb.probe_launch_count, "K1": K.launch_count,
             "K4": S.launch_count, "K5": D.launch_count,
-            "C2": C2.launch_count}
+            "C2": C2.launch_count, "C3": C3.launch_count,
+            **{f"C3.{k}": v for k, v in C3.calls.items()}}
 
 
 # -- C2: Taylor-Green's curl and masked projection --------------------------------
@@ -609,6 +621,89 @@ def c2_timing(torch, ct, perf, gen):
                      "nbytes": nbytes,
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     out["clone_ms"] = t(vh.clone)
+    return out
+
+
+# -- C3: the CG iteration's passes ----------------------------------------------
+
+def c3_vectors(torch, gen, n=C3_N):
+    """``u, p, r, ap``: four random n^3 float32 vectors on the card; ``rs``
+    (``r . r``) and ``pap`` (``|p . Ap|``, positive as the operator
+    makes it) by the plain sums."""
+    u, p, r, ap = (torch.randn((n, n, n), generator=gen, device=DEVICE)
+                   for _ in range(4))
+    return u, p, r, ap, torch.sum(r * r), torch.sum(p * ap).abs()
+
+
+def c3_float64_sum(a, b, slab=64):
+    """``sum(a * b)`` in float64, by x-slabs (no 8 GiB temporary)."""
+    return sum(float((a[i:i + slab].double() * b[i:i + slab].double()).sum())
+               for i in range(0, a.shape[0], slab))
+
+
+def c3_checks(torch, gen):
+    """Phase 6, C3 on :func:`c3_vectors`: the update's u, r and alpha and
+    the direction's p bit-equal to the formulas (``models/poisson.py``)
+    for the same scalars, p . Ap and the update's r . r within 2^-24
+    (one float32 rounding) of float64 sums; one call each."""
+    from cudecomp_tpu_torch.models import poisson as PS
+    from cudecomp_tpu_torch.ops import cg_kernel as C3
+    u, p, r, ap, rs, _ = c3_vectors(torch, gen)
+    c0 = dict(C3.calls)
+    res = {"bit_equal": [], "sum_rel": {}}
+    pap = C3.dot(p, ap)
+    want = c3_float64_sum(p, ap)
+    res["sum_rel"]["dot"] = abs(float(pap) - want) / abs(want)
+    pap = pap.abs()
+    u2, r2, alpha, rr = C3.update(u, p, r, ap, rs, pap)
+    pu, pr, palpha, _ = PS._cg_update(u, p, r, ap, rs, pap)
+    for name, got, plain in (("u", u2, pu), ("r", r2, pr),
+                             ("alpha", alpha, palpha)):
+        if torch.equal(got, plain):
+            res["bit_equal"].append(name)
+    del pu, pr
+    want = c3_float64_sum(r2, r2)
+    res["sum_rel"]["update_rr"] = abs(float(rr) - want) / want
+    p2 = C3.direction(r2, p, rr, rs)
+    if torch.equal(p2, PS._cg_direction(r2, p, rr, rs)):
+        res["bit_equal"].append("p")
+    res["calls"] = {k: C3.calls[k] - c0[k] for k in c0}
+    if (res["bit_equal"] != ["u", "r", "alpha", "p"]
+            or res["calls"] != dict.fromkeys(C3.KERNELS, 1)
+            or not max(res["sum_rel"].values()) <= 2.0 ** -24):
+        raise AssertionError(f"C3 at {C3_N}^3 f32: {res}")
+    return res
+
+
+def c3_timing(torch, perf, gen):
+    """Phase 8, C3 on :func:`c3_vectors`: ms per call (means over trials)
+    of each entry by the kernel and by its formulas, in turns, and of
+    ``clone()`` of one vector; each entry's bound is its vectors (2, 6,
+    3) over the card's bandwidth."""
+    from cudecomp_tpu_torch.models import poisson as PS
+    from cudecomp_tpu_torch.ops import cg_kernel as C3
+    u, p, r, ap, rs, pap = c3_vectors(torch, gen)
+    vbytes = u.numel() * u.element_size()
+
+    def t(fn):
+        return mean(perf.time_fn(fn, n_warmup=2, n_trials=5,
+                                 iters=10)) * 1e3
+
+    entries = (("dot", 2, lambda: C3.dot(p, ap), lambda: PS._cg_dot(p, ap)),
+               ("update", 6, lambda: C3.update(u, p, r, ap, rs, pap),
+                lambda: PS._cg_update(u, p, r, ap, rs, pap)),
+               ("direction", 3, lambda: C3.direction(r, p, rs, pap),
+                lambda: PS._cg_direction(r, p, rs, pap)))
+    out = {}
+    for name, vectors, kernel, plain in entries:
+        runs = {"plain": [], "kernel": []}
+        for side in ("plain", "kernel", "kernel", "plain"):
+            runs[side].append(t(kernel if side == "kernel" else plain))
+        out[name] = {"kernel": mean(runs["kernel"]),
+                     "plain": mean(runs["plain"]), "runs_ms": runs,
+                     "nbytes": vectors * vbytes,
+                     "bound_ms": vectors * vbytes / HBM_BYTES_PER_S * 1e3}
+    out["clone_ms"] = t(u.clone)
     return out
 
 
@@ -789,21 +884,24 @@ def stencil_path(torch, ct, S, K, D, cb):
                           DEVICE))
     f = torch.randn(solver.grid.buffer_shape(0), generator=gen,
                     device=DEVICE)
-    n0 = S.launch_count
+    n0, c0 = S.launch_count, counts(K, S, D, cb)["C3"]
     sol, iters, rel = solver.solve_cg(f, tol=CG_TOL, maxiter=2000)
     cg_launches = S.launch_count - n0
+    cg_c3 = counts(K, S, D, cb)["C3"] - c0
     h = 2 * math.pi / CG_N
     u64, f64 = sol.double(), f.double()
     b = -(f64 - f64.mean())
     resid = -plain_laplacian(torch, u64) / (h * h) - b
     res.update(cg_iters=iters, cg_rel=rel, cg_launches=cg_launches,
+               cg_c3=cg_c3,
                cg_plain_rel=float(torch.linalg.vector_norm(resid)
                                   / torch.linalg.vector_norm(b)))
     if not (rel <= CG_TOL and res["cg_plain_rel"] <= CG_GATE
-            and cg_launches == iters):
+            and cg_launches == iters and cg_c3 == 3 * iters):
         raise AssertionError(f"solve_cg: {iters} iterations, rel "
                              f"{rel}, plain residual {res['cg_plain_rel']} "
-                             f"(<= {CG_GATE}), {cg_launches} K4 launches")
+                             f"(<= {CG_GATE}), {cg_launches} K4 launches, "
+                             f"{cg_c3} C3 calls")
     torch.cuda.synchronize()
     res["launches"] = counts(K, S, D, cb)
     return res
@@ -2060,6 +2158,7 @@ def examples_phase(torch, K, S, D, cb):
     """Each of the six examples on the card at its default size, P = 1,
     between a reset and a read of the counts; its seconds."""
     import importlib
+    from cudecomp_tpu_torch.ops import cg_kernel as C3
     from cudecomp_tpu_torch.ops import spectral_kernel as C2
     out = {}
     for name in EXAMPLES:
@@ -2068,6 +2167,7 @@ def examples_phase(torch, K, S, D, cb):
         S.reset_launch_count()
         D.reset_launch_count()
         C2.reset_launch_count()
+        C3.reset_launch_count()
         cb.reset_probe_count()
         secs = mod.main(["--device", DEVICE])
         torch.cuda.synchronize()
@@ -2302,6 +2402,7 @@ def main() -> int:
     from cudecomp_tpu_torch.ops import cuda_kernels as K
     from cudecomp_tpu_torch.ops import dft2 as D
     from cudecomp_tpu_torch.ops import peer_kernels as PK
+    from cudecomp_tpu_torch.ops import cg_kernel as C3
     from cudecomp_tpu_torch.ops import spectral_kernel as C2
     from cudecomp_tpu_torch.ops import stencil_kernel as S
     from cudecomp_tpu_torch.utils import cuda_build as cb
@@ -2316,19 +2417,22 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
 
-    # phase 2: build K1, K4, K5, C2 and the library of K2 and K3 side by
-    # side; K0 probes each at load
+    # phase 2: build K1, K4, K5, C2, C3 and the library of K2 and K3 side
+    # by side; K0 probes each at load
     torch.cuda.init()
     t0 = time.perf_counter()
-    builds = (K.build, S.build, D.build, C2.build, PK.build)
-    with ThreadPoolExecutor(len(builds) + 2) as pool:
+    builds = (K.build, S.build, D.build, C2.build, C3.build, PK.build)
+    with ThreadPoolExecutor(len(builds) + 3) as pool:
         ptxas = pool.submit(cb.ptxas_report, S.SOURCES)
         c2_ptxas = pool.submit(cb.ptxas_report, C2.SOURCES)
+        c3_ptxas = pool.submit(cb.ptxas_report, C3.SOURCES)
         libs = list(pool.map(lambda build: build(), builds))
         k4_ptxas = ptxas.result()
         c2_ptxas = c2_ptxas.result()
+        c3_ptxas = c3_ptxas.result()
     print(f"C2 ptxas: {c2_ptxas}")
-    print(f"K1, K4, K5, C2 and K2 with K3 built and loaded in "
+    print(f"C3 ptxas: {c3_ptxas}")
+    print(f"K1, K4, K5, C2, C3 and K2 with K3 built and loaded in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({', '.join(p.name for p in libs)}); K0 probed them "
           f"({cb.probe_launch_count} launches)")
@@ -2379,13 +2483,20 @@ def main() -> int:
           f", backward {sp['adjoint_err']:.3e}, 1 K4 launch each; solve_cg "
           f"{CG_N}^3: {sp['cg_iters']} iterations, rel residual "
           f"{sp['cg_rel']:.3e}, plain residual {sp['cg_plain_rel']:.3e} "
-          f"(<= {CG_GATE}), {sp['cg_launches']} K4 launches; path launches "
-          f"{sp['launches']}")
+          f"(<= {CG_GATE}), {sp['cg_launches']} K4 launches, {sp['cg_c3']} "
+          f"C3 calls; path launches {sp['launches']}")
     if min(sp["launches"][k] for k in ("K0", "K4")) < 1:
         raise AssertionError(f"the stencil path skipped a kernel: "
                              f"{sp['launches']}")
     if mp["counts"]["K5"] or sp["launches"]["K5"]:
         raise AssertionError("K5 ran with CUDECOMP_TPU_FFT_FUSED2 unset")
+    torch.cuda.empty_cache()
+    c3 = c3_checks(torch, gen)
+    print(f"C3 cg3 on four random {C3_N}^3 f32 vectors: dot, update and "
+          f"direction one call each ({c3['calls']}); bit-equal to the "
+          f"formulas: {c3['bit_equal']}; sums against float64, relative: "
+          f"{ {k: f'{v:.3e}' for k, v in c3['sum_rel'].items()} } (<= 2^-24)")
+    torch.cuda.empty_cache()
 
     # phase 7: the spectral path
     torch.cuda.empty_cache()
@@ -2488,6 +2599,17 @@ def main() -> int:
               f"{e['plain']:.3f} ms (runs {e['runs_ms']})")
     print(f"[{card}] C2: clone() of the state {c2t['clone_ms']:.4f} ms; "
           f"ptxas {c2_ptxas}")
+    torch.cuda.empty_cache()
+    c3t = c3_timing(torch, perf, gen)
+    for name in ("dot", "update", "direction"):
+        e = c3t[name]
+        print(f"[{card}] C3 cg3 {name} at {C3_N}^3 f32: kernel "
+              f"{e['kernel']:.4f} ms = {e['nbytes'] / e['kernel'] / 1e6:.0f} "
+              f"GB/s, {e['bound_ms'] / e['kernel']:.1%} of its bound "
+              f"{e['bound_ms']:.4f} ms ({e['nbytes']} bytes); the formulas "
+              f"{e['plain']:.3f} ms (runs {e['runs_ms']})")
+    print(f"[{card}] C3: clone() of one vector {c3t['clone_ms']:.4f} ms; "
+          f"ptxas {c3_ptxas}")
     torch.cuda.empty_cache()
     pois = bench.poisson_headline(N=NS)
     tgh = bench.tg_headline(N=NS)
@@ -2707,6 +2829,13 @@ def main() -> int:
     k4_flops = 2 * 27 * N ** 3
     c2_launches = (c2["counts"]["C2"] + spec["tg_c2"] + spec["tg_c2_complex"]
                    + p11_c2)
+
+    def c3_calls(entry):
+        """One C3 entry's calls over the phases that count them."""
+        key = f"C3.{entry}"
+        return (sp["launches"][key] + c3["calls"][entry]
+                + sum(v["launches"][key] for v in ex.values())
+                + bt["counts"][key])
     kernels = {"kernels": [
         {"name": "K0 probe copy",
          "route": "cuda",
@@ -2783,6 +2912,22 @@ def main() -> int:
          "bound_ms": c2t["project_masked"]["bound_ms"],
          "bound_by": "bytes",
          "library_ms": None},
+        # each C3 row counts its own entry's calls, and the kernels they
+        # launched: the pass, and finish_kernel after dot and update
+        *({"name": f"C3 cg3 {name}",
+           "route": "cuda",
+           "source": "cudecomp_tpu_torch/csrc/cg3.cu",
+           "replaces": None,
+           "calls": c3_calls(name),
+           "launches": c3_calls(name) * len(C3.KERNELS[name]),
+           "kernels": C3.KERNELS[name],
+           "bit_equal": c3["bit_equal"],
+           "sum_rel": c3["sum_rel"],
+           "ms": c3t[name]["kernel"],
+           "plain_ms": c3t[name]["plain"],
+           "bound_ms": c3t[name]["bound_ms"],
+           "bound_by": "bytes",
+           "library_ms": None} for name in ("dot", "update", "direction")),
         {"name": "K2 peer_a2a (one-sided all-to-all, 4 ranks on one card)",
          "route": "cuda",
          "source": "cudecomp_tpu_torch/csrc/peer.cu",

@@ -14,23 +14,31 @@ matvec is one K4 stencil pass; it runs the public, resumable iteration
 :class:`CGState`.
 
 Each CG iteration is a ``cg_iter`` span holding, in order, ``cg_matvec``
-(the K4 pass and, for uniform spacings, the ``-1/h^2`` scale), ``cg_dot``
-(``p . Ap``), ``cg_update`` (alpha, ``u`` and ``r``), ``cg_dot``
-(``r . r``), ``cg_update`` (beta and ``p``) and, on the host check's
-iterations, ``cg_check`` (the host read of ``r . r``).  ``cg_iter`` and
-each ``cg_dot`` count ``bytes``: what their passes over the grid read
-and write, by this implementation's count (a scalar's bytes left out).
+(one K4 pass, ``1/h^2`` folded into its weights), ``cg_dot`` (``p .
+Ap``), ``cg_update`` (alpha, ``u``, ``r`` and ``r . r``), ``cg_update``
+(beta and ``p``) and, on the host check's iterations, ``cg_check`` (the
+host read of ``r . r``).  On a CUDA state the dot and the two updates
+are one C3 pass each (``ops/cg_kernel.py``; a state C3 cannot take
+raises), on the CPU the formulas ``_cg_dot``, ``_cg_update`` and
+``_cg_direction``.
+``cg_iter`` counts ``kernel`` (1 where C3 ran, 0 on the formulas) and,
+like the dot and the updates, ``bytes``: what their passes over the grid
+read and write (a scalar's bytes left out), 13 vectors an iteration with
+C3 and 24 on the formulas.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from cudecomp_tpu_torch.grid import GridDescriptor
+from cudecomp_tpu_torch.ops import cg_kernel as C3
 from cudecomp_tpu_torch.ops.fft import DistributedFFT
 from cudecomp_tpu_torch.parallel.collectives import all_reduce_grid
 from cudecomp_tpu_torch.utils.tracing import PREFIX, trace_range
@@ -66,6 +74,57 @@ def _guarded_div(num, den):
     converged between two host checks stays where it is."""
     ok = den > 0
     return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
+
+
+@functools.lru_cache(maxsize=64)
+def _cg_weights(op, mantissa: int) -> np.ndarray:
+    """The CG matvec's 7-tap weights (``-lap_h``) as K4 takes them: faces
+    ``-1/h_d^2``, the centre minus their sum.  ``op`` is ``1/h^2`` (a
+    float) for uniform spacings, else ``1/h_d^2`` per memory dim;
+    ``mantissa`` the bits of the precision K4 computes in (53 in
+    float64, 24 otherwise).
+
+    Each face is rounded to a multiple of a power of two ``q`` for which
+    the centre stays below ``2^(mantissa - 1) q``: every weight, and
+    every partial sum of them, is then exact in that precision, and the
+    operator takes a constant field to exactly 0, as ``-lap_h`` does.
+    Rounded each to its nearest float instead, the weights of a 1024^3
+    box of side 2 pi miss by 0.0039 in float32 (centre 159364.44, faces
+    -26560.74): the operator shifts by 0.4% of its smallest nonzero
+    eigenvalue and the constant mode turns negative.  The rounding
+    scales a uniform operator by at most ``12 * 2^-mantissa``."""
+    inv = (op,) * 3 if isinstance(op, float) else op
+    q = 2.0 ** (math.ceil(math.log2(2 * sum(inv))) + 1 - mantissa)
+    w = np.zeros((3, 3, 3))
+    for d in range(3):
+        lo, hi = [1, 1, 1], [1, 1, 1]
+        lo[d], hi[d] = 0, 2
+        w[tuple(lo)] = w[tuple(hi)] = -round(inv[d] / q) * q
+    w[1, 1, 1] = -w.sum()
+    w.setflags(write=False)  # shared by every call through the cache
+    return w
+
+
+# The plain versions of C3's passes (``ops/cg_kernel.py``): the local
+# parts of an iteration's vector work, in the order the kernel runs it.
+
+def _cg_dot(p, ap):
+    """``p . Ap``, this rank's part."""
+    return torch.sum(p * ap)
+
+
+def _cg_update(u, p, r, ap, rs, pap):
+    """alpha, then ``u + alpha p``, ``r - alpha Ap`` and this rank's part
+    of the new ``r . r``: ``(u, r, alpha, rr)``."""
+    alpha = _guarded_div(rs, pap)
+    u = u + alpha * p
+    r = r - alpha * ap
+    return u, r, alpha, torch.sum(r * r)
+
+
+def _cg_direction(r, p, rs_new, rs):
+    """beta, then ``r + beta p``."""
+    return r + _guarded_div(rs_new, rs) * p
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,46 +232,34 @@ class PoissonSolver:
         return self._sum(t) / float(np.prod(self.grid.config.gdims))
 
     def _cg_matvec(self):
-        """The CG operator ``-lap_h`` as ``(matvec, items)``: ``items`` is
-        the values per cell its passes read and write (4: the K4 pass of
-        ``laplacian7`` and the ``-1/h^2`` scale, for uniform spacings; 2:
-        one weighted 7-tap ``stencil_apply`` pass otherwise)."""
-        from cudecomp_tpu_torch.ops.stencil import laplacian7, stencil_apply
+        """The CG operator ``-lap_h``: one weighted 7-tap K4 pass, the
+        ``1/h_d^2`` folded into its weights (:func:`_cg_weights`, for the
+        precision of the vector it is given).  ``_cache["cg_op"]`` holds
+        ``1/h^2`` (a float) for uniform spacings, else ``1/h_d^2`` per
+        memory dim (stencil offsets are memory-dim offsets)."""
+        from cudecomp_tpu_torch.ops.stencil import stencil_apply
         periods = (True, True, True)
         op = self._cache.get("cg_op")
         if op is None:
             cfg = self.grid.config
             hs = [self.lengths[d] / cfg.gdims[d] for d in range(3)]
-            if np.allclose(hs, hs[0]):
-                op = 1.0 / (hs[0] * hs[0])
-            else:
-                # anisotropic 7-point weights, laid out in MEMORY order
-                # (stencil offsets are memory-dim offsets)
-                order = cfg.mem_order(0)
-                w = np.zeros((3, 3, 3))
-                for d in range(3):
-                    inv = 1.0 / (hs[order[d]] ** 2)
-                    idx_lo = [1, 1, 1]
-                    idx_hi = [1, 1, 1]
-                    idx_lo[d], idx_hi[d] = 0, 2
-                    w[tuple(idx_lo)] = w[tuple(idx_hi)] = inv
-                    w[1, 1, 1] -= 2.0 * inv
-                op = -w  # matvec is -lap (PSD)
+            op = (1.0 / (hs[0] * hs[0]) if np.allclose(hs, hs[0]) else
+                  tuple(1.0 / hs[d] ** 2 for d in cfg.mem_order(0)))
             self._cache["cg_op"] = op
-        if isinstance(op, float):
-            def matvec(v):
-                return (-op) * laplacian7(self.grid, v, 0, periods)
-            return matvec, 4
 
-        def weighted(v):
-            return stencil_apply(self.grid, v, op, 0, periods)
-        return weighted, 2
+        def matvec(v):
+            # K4 sums in float64 for a float64 tensor, else in float32
+            bits = 53 if v.dtype == torch.float64 else 24
+            return stencil_apply(self.grid, v, _cg_weights(op, bits), 0,
+                                 periods)
+        return matvec
 
     def cg_init(self, f) -> CGState:
         """The state a CG solve of ``lap_h(u) = f`` starts from (see
         :meth:`solve_cg`): ``b = -(f - mean(f))``, ``u = 0``, ``r = p =
-        b``.  Reads ``|b|`` on the host once."""
-        b = -(f - self._mean(f))
+        b``, contiguous whatever the strides of ``f``.  Reads ``|b|`` on
+        the host once."""
+        b = (-(f - self._mean(f))).contiguous()
         rs = self._sum(b * b)
         bnorm = float(torch.sqrt(rs))
         return CGState(torch.zeros_like(b), b, b, rs, None, 0,
@@ -220,33 +267,42 @@ class PoissonSolver:
 
     def cg_iterate(self, state: CGState, check_every: int = 64) -> CGState:
         """One CG iteration from ``state``: the state after it.  Nothing
-        of ``state`` is written, so a caller may keep it.
+        of ``state`` is written, so a caller may keep it; ``alpha`` and
+        ``rs`` are new 0-d tensors every iteration.
 
         The iteration enqueues its work without a host sync, except on
         iterations whose count is a multiple of ``check_every``: there the
         host reads ``r . r`` into ``rs_host`` (the ``cg_check`` span).
         ``alpha = (r . r) / (p . Ap)`` and ``beta`` are guarded
-        divisions, so that a state that converged between two checks stays
-        where it is."""
-        matvec, items = self._cg_matvec()
+        divisions, so that a state that converged between two host checks
+        stays where it is.  On a CUDA state the dot and the updates are
+        C3's three passes (which raise on a state they cannot take), on the
+        CPU their formulas."""
+        matvec = self._cg_matvec()
         u, r, p, rs = state.u, state.r, state.p, state.rs
+        fused = u.is_cuda
+        dot, update, direction = ((C3.dot, C3.update, C3.direction)
+                                  if fused else
+                                  (_cg_dot, _cg_update, _cg_direction))
         v = p.numel() * p.element_size()
+        # vectors read and written: the matvec 2; with C3 the dot 2, the
+        # first update 6, the second 3; on the formulas a product and a
+        # sum for the dot (4), two products, two sums and r * r with its
+        # sum for the first update (13), a product and a sum for p (5)
+        dot_v, update_v, dir_v = (2, 6, 3) if fused else (4, 13, 5)
         it, rs_host = state.it + 1, state.rs_host
-        # the matvec, p * Ap and its sum (4 v), u and r: a product and a
-        # sum each (10 v), r * r and its sum (3 v), p (5 v)
-        with trace_range(PREFIX + "cg_iter", bytes=(items + 22) * v):
+        with trace_range(PREFIX + "cg_iter", kernel=int(fused),
+                         bytes=(2 + dot_v + update_v + dir_v) * v):
             with trace_range(PREFIX + "cg_matvec"):
                 ap = matvec(p)
-            with trace_range(PREFIX + "cg_dot", bytes=4 * v):
-                pap = self._sum(p * ap)
-            with trace_range(PREFIX + "cg_update"):
-                alpha = _guarded_div(rs, pap)
-                u = u + alpha * p
-                r = r - alpha * ap
-            with trace_range(PREFIX + "cg_dot", bytes=3 * v):
-                rs_new = self._sum(r * r)
-            with trace_range(PREFIX + "cg_update"):
-                p = r + _guarded_div(rs_new, rs) * p
+            with trace_range(PREFIX + "cg_dot", bytes=dot_v * v):
+                pap = all_reduce_grid(dot(p, ap), self.grid)
+            with trace_range(PREFIX + "cg_update", bytes=update_v * v):
+                u, r, alpha, rr = update(u, p, r, ap, rs, pap)
+                del ap  # before p's pass allocates the new p
+                rs_new = all_reduce_grid(rr, self.grid)
+            with trace_range(PREFIX + "cg_update", bytes=dir_v * v):
+                p = direction(r, p, rs_new, rs)
             if it % check_every == 0:
                 with trace_range(PREFIX + "cg_check"):
                     rs_host = float(rs_new)
@@ -259,9 +315,9 @@ class PoissonSolver:
         rank's X-pencil tensor ``f``: :meth:`cg_init`, then
         :meth:`cg_iterate` in chunks of ``check_every``.
 
-        The matvec is one K4 stencil pass per iteration: ``laplacian7``
-        scaled by ``-1/h^2`` for uniform spacings, a weighted 7-tap
-        ``stencil_apply`` (``1/h_d^2`` per dim) otherwise.  CG is valid
+        The matvec is one K4 stencil pass per iteration, the weighted
+        7-tap stencil of ``-lap_h`` (``1/h_d^2`` per dim in its
+        weights).  CG is valid
         because the operator is symmetric and positive semi-definite on
         the mean-zero subspace.  The dot products are local sums plus one
         sum over the grid's ranks.

@@ -846,6 +846,87 @@ def check_peer_ranks(rank: int, gdims=(10, 12, 14)) -> None:
     check_workspace_growth(torch.device("cuda", 0))
 
 
+def check_c3_sums_over_ranks(rank: int, gdims=(20, 18, 22)) -> None:
+    """A :func:`run_card_ranks` body: on ``cuda:0`` at pdims (W, 1), C3's
+    sums of this rank's shards of four seeded float64 vectors, reduced over
+    the ranks by ``all_reduce_grid`` as ``cg_iterate`` reduces them (p .
+    Ap after the dot, the new r . r after the update), against the float64
+    sums of the whole vectors; the update's u and r bit-equal to the
+    formulas on the shards; one call of each entry."""
+    import torch.distributed as dist
+
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch.models import poisson as PS
+    from cudecomp_tpu_torch.ops import cg_kernel as C3
+    from cudecomp_tpu_torch.parallel.collectives import all_reduce_grid
+
+    W = dist.get_world_size()
+    dev = torch.device("cuda", 0)
+    grid = ct.make_grid(ct.GridConfig(gdims=tuple(gdims), pdims=(W, 1)), dev)
+    gen = torch.Generator().manual_seed(4)
+    u, p, r, ap = (torch.randn(tuple(gdims), generator=gen,
+                               dtype=torch.float64) for _ in range(4))
+    lu, lp, lr, lap = (ct.scatter_global(grid, t, 0) for t in (u, p, r, ap))
+    calls = dict(C3.calls)
+
+    def near(got, terms, what):
+        want, mag = float(terms.sum()), float(terms.abs().sum())
+        _ok(abs(float(got) - want) <= 1e-13 * mag,
+            f"rank {rank}: {what} over {W} ranks {float(got)!r}, the "
+            f"float64 sum {want!r}")
+
+    pap = all_reduce_grid(C3.dot(lp, lap), grid)
+    near(pap, p * ap, "p . Ap")
+    pap = pap.abs()
+    rs = torch.tensor(float((r * r).sum()), dtype=torch.float64, device=dev)
+    u2, r2, alpha, rr = C3.update(lu, lp, lr, lap, rs, pap)
+    pu, pr, _, _ = PS._cg_update(lu, lp, lr, lap, rs, pap)
+    _ok(torch.equal(u2, pu) and torch.equal(r2, pr),
+        f"rank {rank}: the update's u and r differ from the formulas")
+    r_new = r - alpha.cpu() * ap
+    near(all_reduce_grid(rr, grid), r_new * r_new, "the new r . r")
+    got = {k: C3.calls[k] - calls[k] for k in calls}
+    _ok(got == {"dot": 1, "update": 1, "direction": 0},
+        f"rank {rank}: C3 calls {got}")
+
+
+def cg_card_rank(rank: int, world: int, port: int, case: dict) -> None:
+    """One of ``world`` ranks, one card each, over NCCL (``tcp://localhost:
+    port``): ``solve_cg`` of ``case["field"]`` (the global float64
+    right-hand side) at ``case["pdims"]`` on ``cuda:<rank>``, its dot and
+    updates on C3 (3 calls an iteration on every rank, their partial sums
+    reduced over the ranks), against a one-rank solve of the same field:
+    ``case["iters"]`` iterations and this rank's shard of ``case["u"]`` to
+    1e-9."""
+    import torch.distributed as dist
+
+    import cudecomp_tpu_torch as ct
+    from cudecomp_tpu_torch.ops import cg_kernel as C3
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        grid = ct.make_grid(ct.GridConfig(gdims=tuple(case["gdims"]),
+                                          pdims=tuple(case["pdims"])), dev)
+        f = ct.scatter_global(grid, case["field"], 0)
+        C3.reset_launch_count()
+        u, iters, _ = ct.models.PoissonSolver(grid=grid).solve_cg(
+            f, tol=case["tol"], check_every=case["check_every"])
+        _ok(iters == case["iters"], f"rank {rank}: {iters} iterations, "
+            f"the one-rank solve took {case['iters']}")
+        _ok(C3.calls == dict.fromkeys(C3.KERNELS, iters),
+            f"rank {rank}: C3 calls {C3.calls} over {iters} iterations")
+        err = float((u - ct.scatter_global(grid, case["u"], 0)).abs().max())
+        _ok(err <= 1e-9, f"rank {rank}: max abs diff {err} from the "
+            f"one-rank solve")
+        dist.barrier()
+    finally:
+        ct.clear_plan_caches()
+        dist.destroy_process_group()
+
+
 def lost_peer_rank(rank: int, init_file: str, bound_s: float) -> None:
     """One of two ranks on ``cuda:0`` over a gloo world joined through
     ``init_file``, whose rank 1 is lost: both make the world's workspace;
