@@ -7,7 +7,13 @@ FFT, a multiply by ``-1/|k|^2`` (zero mode pinned to 0), or by the inverse
 symbol of the discrete 7-point Laplacian, and an inverse FFT.  The scale
 field is built once per solver in float64 (with the r2c halving and the
 padded Z-pencil layout) and cast once per state dtype, so a complex64
-spectrum stays complex64.  :meth:`PoissonSolver.solve_cg` is the
+spectrum stays complex64.  The solver's ``fused2`` pins its FFT plan's K5
+policy (None: ``CUDECOMP_TPU_FFT_FUSED2``, read per call).  A solve is a
+``poisson_solve`` span, which counts ``kernel``: the K5 launches it made
+(2 for a ``split_complex`` solve that takes K5, 0 without it and on the
+CPU, where K5's plain version runs).  The spectral multiply inside it is
+a ``poisson_scale`` span, which counts ``bytes``: what its products read
+and write.  :meth:`PoissonSolver.solve_cg` is the
 matrix-free conjugate-gradient solve of the discrete equation, whose
 matvec is one K4 stencil pass; it runs the public, resumable iteration
 :meth:`PoissonSolver.cg_init` / :meth:`PoissonSolver.cg_iterate` on a
@@ -39,6 +45,7 @@ import torch
 
 from cudecomp_tpu_torch.grid import GridDescriptor
 from cudecomp_tpu_torch.ops import cg_kernel as C3
+from cudecomp_tpu_torch.ops import dft2 as dft2_ops
 from cudecomp_tpu_torch.ops.fft import DistributedFFT
 from cudecomp_tpu_torch.parallel.collectives import all_reduce_grid
 from cudecomp_tpu_torch.utils.tracing import PREFIX, trace_range
@@ -67,6 +74,14 @@ class CGState(NamedTuple):
     def rel_residual(self) -> float:
         """``|r| / |b|`` at the host's last read."""
         return float(np.sqrt(self.rs_host)) / max(self.bnorm, 1e-300)
+
+
+def _product_bytes(a: torch.Tensor, s: torch.Tensor) -> int:
+    """Bytes ``a * s`` reads and writes, at the operands' element sizes
+    (a plane that views a complex tensor is read at stride 2, which moves
+    about twice its share)."""
+    return (2 * a.numel() * a.element_size()
+            + s.numel() * s.element_size())
 
 
 def _guarded_div(num, den):
@@ -137,6 +152,10 @@ class PoissonSolver:
     lengths: Tuple[float, float, float] = (2 * np.pi, 2 * np.pi, 2 * np.pi)
     real: bool = True
     split_complex: bool = False
+    #: the FFT plan's K5 policy (:class:`DistributedFFT`'s ``fused2``):
+    #: None leaves it to ``CUDECOMP_TPU_FFT_FUSED2``, read per call; True
+    #: pins K5 for a ``split_complex`` solver wherever ``dft2_fits`` holds
+    fused2: Optional[bool] = None
     # init=False: dataclasses.replace() must not carry a populated cache
     # into a solver with other parameters
     _cache: dict = dataclasses.field(default_factory=dict, compare=False,
@@ -145,7 +164,8 @@ class PoissonSolver:
     @property
     def plan(self) -> DistributedFFT:
         return DistributedFFT(grid=self.grid, real=self.real,
-                              split_complex=self.split_complex)
+                              split_complex=self.split_complex,
+                              fused2=self.fused2)
 
     def _sops(self):
         from cudecomp_tpu_torch.ops.spectral import SpectralOperators
@@ -195,11 +215,19 @@ class PoissonSolver:
             # plane-carried: the scale applies per plane
             rh, ih = plan.forward_planes(f)
             s = self._scale(discrete, rh.dtype)
-            return plan.inverse_planes((rh * s, ih * s))
+            with trace_range(PREFIX + "poisson_scale",
+                             bytes=2 * _product_bytes(rh, s)):
+                planes = (rh * s, ih * s)
+            return plan.inverse_planes(planes)
         fh = plan.forward(f)
         if self.split_complex:
-            return plan.inverse(fh * self._scale(discrete, fh.dtype)[..., None])
-        return plan.inverse(fh * self._scale(discrete, fh.real.dtype))
+            s = self._scale(discrete, fh.dtype)[..., None]
+        else:
+            s = self._scale(discrete, fh.real.dtype)
+        with trace_range(PREFIX + "poisson_scale",
+                         bytes=_product_bytes(fh, s)):
+            fh = fh * s
+        return plan.inverse(fh)
 
     def solve(self, f, discrete: bool = False):
         """``f``: this rank's X-pencil tensor on ``grid`` (real if
@@ -209,8 +237,11 @@ class PoissonSolver:
         With ``discrete=True`` the scale is the inverse symbol of the
         discrete 7-point Laplacian instead of ``-1/|k|^2``: the result
         solves ``lap_h(u) = f`` exactly in one FFT pair."""
-        with trace_range("cudecomp_tpu_torch.poisson_solve"):
-            return self._solve_with(self.plan, f, discrete)
+        with trace_range(PREFIX + "poisson_solve", kernel=0) as counts:
+            n0 = dft2_ops.launch_count
+            u = self._solve_with(self.plan, f, discrete)
+            counts["kernel"] = dft2_ops.launch_count - n0
+            return u
 
     def jitted(self):
         """A solve function with the plan and the continuous scale built

@@ -30,11 +30,14 @@ pins, overrides the opt-in.
 Dispatch: a tensor on the CPU takes the plain version (:func:`dft2_ref`,
 the two dense products, which also takes complex128).  A CUDA tensor
 launches the kernel or raises; nothing falls back.  ``launch_count``
-counts launches.  :func:`dft2` is a ``torch.autograd.Function`` on both
-devices: the gradient of the unnormalised forward DFT ``A`` is
-``A^H g``, the inverse transform of ``g`` without its ``1/(N1*N2)``; that
-of the inverse is the forward transform of ``g`` times ``1/(N1*N2)``.  On
-a CUDA tensor both are one K5 launch, the factor passed as K5's scale.
+counts launches.  Each transform, either device, runs in a ``dft2`` span
+that counts ``bytes`` (the batch of planes read and written once: 2 x
+numel x itemsize) and ``planes`` (X).  :func:`dft2` is a
+``torch.autograd.Function`` on both devices: the gradient of the
+unnormalised forward DFT ``A`` is ``A^H g``, the inverse transform of
+``g`` without its ``1/(N1*N2)``; that of the inverse is the forward
+transform of ``g`` times ``1/(N1*N2)``.  On a CUDA tensor both are one K5
+launch, the factor passed as K5's scale.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import torch
 
 from cudecomp_tpu_torch.utils import cuda_build
 from cudecomp_tpu_torch.utils.env import fft_fused2
+from cudecomp_tpu_torch.utils.tracing import PREFIX, trace_range
 
 SOURCES = ("dft2.cu",)
 SIGNATURES = (
@@ -345,39 +349,44 @@ def _dft2(x: torch.Tensor, inverse: bool, scale=None) -> torch.Tensor:
     CPU, else one K5 launch."""
     global launch_count
     _check(x)
-    n = x.shape[1] * x.shape[2]
-    default = 1.0 / n if inverse else 1.0
-    if scale is None:
-        scale = default
-    if x.device.type == "cpu":
-        out = dft2_ref(x, inverse)
-        return out if scale == default else out * (scale / default)
-    if x.device.type != "cuda":
-        raise ValueError(f"K5 runs on CUDA tensors, got one on {x.device}")
-    if x.dtype != torch.complex64:
-        raise ValueError(f"K5 takes complex64 CUDA tensors, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("K5 takes contiguous tensors; call .contiguous() "
-                         "first")
-    nx, n1, n2 = x.shape
-    plan = dft2_plan(n1, n2)
-    lib = _lib()
-    out = torch.empty_like(x)
-    if x.numel() == 0:
+    with trace_range(PREFIX + "dft2", bytes=2 * x.numel() * x.element_size(),
+                     planes=x.shape[0]):
+        n = x.shape[1] * x.shape[2]
+        default = 1.0 / n if inverse else 1.0
+        if scale is None:
+            scale = default
+        if x.device.type == "cpu":
+            out = dft2_ref(x, inverse)
+            return out if scale == default else out * (scale / default)
+        if x.device.type != "cuda":
+            raise ValueError(f"K5 runs on CUDA tensors, got one on "
+                             f"{x.device}")
+        if x.dtype != torch.complex64:
+            raise ValueError(f"K5 takes complex64 CUDA tensors, got "
+                             f"{x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError("K5 takes contiguous tensors; call .contiguous() "
+                             "first")
+        nx, n1, n2 = x.shape
+        plan = dft2_plan(n1, n2)
+        lib = _lib()
+        out = torch.empty_like(x)
+        if x.numel() == 0:
+            return out
+        tw1 = twiddles(n1, x.dtype, x.device)
+        tw2 = twiddles(n2, x.dtype, x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.cudecomp_dft2(x.data_ptr(), out.data_ptr(),
+                                    tw1.data_ptr(), tw2.data_ptr(), nx, n1,
+                                    n2, plan.cluster, plan.chunk,
+                                    int(bool(inverse)), scale, stream)
+        if err != 0:
+            msg = lib.cudecomp_cuda_error_string(err).decode()
+            raise RuntimeError(
+                f"K5 launch failed for shape {tuple(x.shape)}, one cluster "
+                f"of {plan.cluster} blocks per plane with {plan.smem} bytes "
+                f"of shared memory each and {plan.chunk}-column chunks: "
+                f"{msg} ({err})")
+        launch_count += 1
         return out
-    tw1 = twiddles(n1, x.dtype, x.device)
-    tw2 = twiddles(n2, x.dtype, x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.cudecomp_dft2(x.data_ptr(), out.data_ptr(), tw1.data_ptr(),
-                                tw2.data_ptr(), nx, n1, n2, plan.cluster,
-                                plan.chunk, int(bool(inverse)), scale,
-                                stream)
-    if err != 0:
-        msg = lib.cudecomp_cuda_error_string(err).decode()
-        raise RuntimeError(f"K5 launch failed for shape {tuple(x.shape)}, "
-                           f"one cluster of {plan.cluster} blocks per plane "
-                           f"with {plan.smem} bytes of shared memory each "
-                           f"and {plan.chunk}-column chunks: {msg} ({err})")
-    launch_count += 1
-    return out

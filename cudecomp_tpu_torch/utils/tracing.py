@@ -14,7 +14,8 @@ a record appended to an in-memory buffer that holds
   same thread when it opened; None for a root);
 * its host start and end (``time.perf_counter_ns``);
 * the integer counts passed to :func:`trace_range` (an exchange's
-  ``bytes``);
+  ``bytes``), or set in the dict it yields before the range closes (a
+  Poisson solve's K5 launches);
 * while CUDA is initialized, a start and an end
   ``torch.cuda.Event(enable_timing=True)`` recorded on the stream that was
   current when the span opened, so that its device time is the stream's
@@ -162,9 +163,11 @@ def clear_spans() -> None:
 @contextlib.contextmanager
 def trace_range(name: str, **counts: int):
     """Named range for profiler traces and, on CUDA, for NVTX; a recorded
-    span, with ``counts``, while the profiler is on."""
+    span, with ``counts``, while the profiler is on.  Yields ``counts``,
+    the span's own dict: a count known only once the work ran is set in
+    it before the range closes."""
     if _DISABLED:
-        yield
+        yield counts
         return
     nvtx = torch.cuda.is_initialized()
     with torch.profiler.record_function(name):
@@ -174,7 +177,7 @@ def trace_range(name: str, **counts: int):
         if nvtx:
             torch.cuda.nvtx.range_push(name)
         try:
-            yield
+            yield counts
         finally:
             if nvtx:
                 torch.cuda.nvtx.range_pop()
